@@ -27,8 +27,9 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 from .params import MAINNET, MINIMAL, EpochParams, params_from_jax  # noqa: E402,F401
-from .parallel import (EpochScalars, RegistryArrays,  # noqa: E402,F401
-                       ValidatorLeaves, balances_list_root, epoch_sweep,
-                       make_epoch_step, validator_records_root,
-                       validator_registry_root)
+from .parallel import (EpochScalars, IncrementalEpochStep,  # noqa: E402,F401
+                       MerkleForest, RegistryArrays, ValidatorLeaves,
+                       balances_forest, balances_list_root, epoch_sweep,
+                       make_epoch_step, registry_forest,
+                       validator_records_root, validator_registry_root)
 from .ops.sha256 import hash_pairs, sha256_64B_words  # noqa: E402,F401

@@ -28,11 +28,13 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("epoch_sweep", "sha256", "records_root")
+SOURCES = ("epoch_sweep", "sha256", "records_root", "incremental")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-launches = {"epoch_sweep": 0, "sha256_64B": 0, "records_root": 0}
+launches = {"epoch_sweep": 0, "sha256_64B": 0, "records_root": 0,
+            "records_root_gather": 0, "update_level": 0, "balance_chunks": 0,
+            "proof_paths": 0}
 
 
 def reset_launches() -> None:

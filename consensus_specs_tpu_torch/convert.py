@@ -86,3 +86,16 @@ def synthetic_leaf_words(n: int, seed: int = 2):
     pk_root = rng.randint(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32)
     cred = rng.randint(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32)
     return pk_root, cred
+
+
+def incremental_step_inputs(n: int, dirty_frac: float = 0.01, seed: int = 7):
+    """The incremental step's other inputs, the recipe of `bench.py`
+    `worker_epoch`: from one `RandomState(seed)`, random (n, 8) uint32
+    pubkey-root and credential words, then the sorted dirty validator
+    set of max(1, int(dirty_frac * n)) distinct indices."""
+    rng = np.random.RandomState(seed)
+    pk_root = rng.randint(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32)
+    cred = rng.randint(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32)
+    m = max(1, int(dirty_frac * n))
+    dirty = np.sort(rng.choice(n, m, replace=False)).astype(np.int64)
+    return pk_root, cred, dirty

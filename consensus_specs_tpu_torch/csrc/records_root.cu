@@ -11,6 +11,11 @@
 // withdrawable_epoch, each a uint64 alone in its 32-byte chunk.  The record
 // root is a depth-3 tree over them: 4 + 2 + 1 = 7 SHA-256 messages.
 //
+// Gather mode (an index array given) replaces bench.py:260
+// dirty_record_roots: output row i is the record root of validator
+// min(index[i], n_rows - 1), the fields read through the index in place
+// of gathering seven arrays first.
+//
 // Bound on an H100: integer issue, as K2 (sha256.cu): 7 messages of about
 // 2,300 integer instructions each against 137 bytes read and written per
 // validator.  The leaves are built in registers, so the 256-byte leaf
@@ -57,7 +62,8 @@ __global__ void records_root_kernel(
     const unsigned long long* __restrict__ activation_epoch,
     const unsigned long long* __restrict__ exit_epoch,
     const unsigned long long* __restrict__ withdrawable_epoch,
-    uint4* __restrict__ out, long long n, long long length) {
+    const long long* __restrict__ index, uint4* __restrict__ out, long long n,
+    long long n_rows, long long length) {
   long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
   if (i >= length) {
@@ -65,20 +71,25 @@ __global__ void records_root_kernel(
     out[2 * i + 1] = make_uint4(0, 0, 0, 0);
     return;
   }
+  long long r = i;
+  if (index != nullptr) {
+    unsigned long long x = (unsigned long long)index[i];
+    r = x < (unsigned long long)n_rows ? (long long)x : n_rows - 1;
+  }
   uint32_t h01[8], h23[8], h45[8], h67[8];
   {
     uint32_t w[16];
-    uint4 a = pubkey_root[2 * i], b = pubkey_root[2 * i + 1];
-    uint4 c = credentials[2 * i], d = credentials[2 * i + 1];
+    uint4 a = pubkey_root[2 * r], b = pubkey_root[2 * r + 1];
+    uint4 c = credentials[2 * r], d = credentials[2 * r + 1];
     w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
     w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
     w[8] = c.x; w[9] = c.y; w[10] = c.z; w[11] = c.w;
     w[12] = d.x; w[13] = d.y; w[14] = d.z; w[15] = d.w;
     cst::sha256_64B(w, h01);
   }
-  hash_u64_pair(effective_balance[i], slashed[i] ? 1ull : 0ull, h23);
-  hash_u64_pair(activation_eligibility_epoch[i], activation_epoch[i], h45);
-  hash_u64_pair(exit_epoch[i], withdrawable_epoch[i], h67);
+  hash_u64_pair(effective_balance[r], slashed[r] ? 1ull : 0ull, h23);
+  hash_u64_pair(activation_eligibility_epoch[r], activation_epoch[r], h45);
+  hash_u64_pair(exit_epoch[r], withdrawable_epoch[r], h67);
   uint32_t h0123[8], h4567[8], root[8];
   hash_node_pair(h01, h23, h0123);
   hash_node_pair(h45, h67, h4567);
@@ -93,7 +104,8 @@ extern "C" int records_root_launch(const void* pubkey_root, const void* credenti
                                    const void* effective_balance, const void* slashed,
                                    const void* activation_eligibility_epoch,
                                    const void* activation_epoch, const void* exit_epoch,
-                                   const void* withdrawable_epoch, void* out, long long n,
+                                   const void* withdrawable_epoch, const void* index,
+                                   void* out, long long n, long long n_rows,
                                    long long length, void* stream) {
   unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   records_root_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
@@ -101,6 +113,7 @@ extern "C" int records_root_launch(const void* pubkey_root, const void* credenti
       (const unsigned long long*)effective_balance, (const uint8_t*)slashed,
       (const unsigned long long*)activation_eligibility_epoch,
       (const unsigned long long*)activation_epoch, (const unsigned long long*)exit_epoch,
-      (const unsigned long long*)withdrawable_epoch, (uint4*)out, n, length);
+      (const unsigned long long*)withdrawable_epoch, (const long long*)index, (uint4*)out,
+      n, n_rows, length);
   return (int)cudaGetLastError();
 }

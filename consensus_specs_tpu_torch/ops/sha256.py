@@ -126,14 +126,28 @@ def _lib():
     return lib
 
 
-def sha256_64B_words_kernel(blocks: torch.Tensor) -> torch.Tensor:
-    """K2 on a CUDA tensor of (..., 16) int32 message words."""
-    _build.require_cuda("sha256_64B", blocks)
+def _out_words(blocks: torch.Tensor, out) -> torch.Tensor:
+    """The (..., 8) int32 digest tensor for `blocks`: `out` when given
+    (checked), else a new one."""
+    shape = blocks.shape[:-1] + (8,)
+    if out is None:
+        return torch.empty(shape, dtype=torch.int32, device=blocks.device)
+    if (out.shape != shape or out.dtype != torch.int32
+            or out.device != blocks.device or not out.is_contiguous()):
+        raise ValueError(f"sha256_64B: out must be a contiguous {tuple(shape)}"
+                         f" int32 tensor on {blocks.device}")
+    return out
+
+
+def sha256_64B_words_kernel(blocks: torch.Tensor, out=None) -> torch.Tensor:
+    """K2 on a CUDA tensor of (..., 16) int32 message words; writes the
+    digests into `out` (a contiguous (..., 8) int32 tensor, e.g. one
+    level of a Merkle forest) when given."""
     if blocks.dtype != torch.int32 or blocks.shape[-1] != 16:
         raise ValueError("sha256_64B: expected (..., 16) int32 words, got "
                          f"{blocks.dtype} {tuple(blocks.shape)}")
-    out = torch.empty(blocks.shape[:-1] + (8,), dtype=torch.int32,
-                      device=blocks.device)
+    out = _out_words(blocks, out)
+    _build.require_cuda("sha256_64B", blocks, out)
     n = blocks.numel() // 16
     if n:
         _build.check(_lib().sha256_64B_launch(
@@ -162,12 +176,14 @@ def sha256_u64_leaves_kernel(values: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def sha256_64B_words(blocks: torch.Tensor) -> torch.Tensor:
+def sha256_64B_words(blocks: torch.Tensor, out=None) -> torch.Tensor:
     """SHA-256 of (..., 16)-word 64-byte messages -> (..., 8)-word digests:
-    the plain version for a CPU tensor, K2 for a CUDA tensor."""
-    if blocks.device.type == "cpu":
-        return sha256_64B_words_plain(blocks)
-    return sha256_64B_words_kernel(blocks)
+    the plain version for a CPU tensor, K2 for a CUDA tensor.  With
+    `out`, the digests are written there and `out` is returned."""
+    if blocks.device.type != "cpu":
+        return sha256_64B_words_kernel(blocks, out)
+    digests = sha256_64B_words_plain(blocks)
+    return digests if out is None else _out_words(blocks, out).copy_(digests)
 
 
 def hash_pairs(words: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from .._uint import U32_MASK, bswap32, i64, shr64, u32_to_i32
+from .._uint import U32_MASK, bswap32, i64, shr64, u32_to_i32, umin
 from ..ops.sha256 import (sha256_64B_words, sha256_64B_words_plain,
                           sha256_u64_leaves_kernel, zero_hash_words)
 
@@ -131,9 +131,20 @@ class ValidatorLeaves(NamedTuple):
 def validator_records_root_plain(leaves: ValidatorLeaves, effective_balance,
                                  slashed, activation_eligibility_epoch,
                                  activation_epoch, exit_epoch,
-                                 withdrawable_epoch, length=None):
+                                 withdrawable_epoch, length=None, index=None):
     """(N, 8) root words of each Validator record in plain PyTorch; rows
-    with index >= `length` (when given) are zero chunks."""
+    with index >= `length` (when given) are zero chunks.  With `index`
+    ((M,) int64), row i is the record of validator min(index[i], N - 1),
+    read as unsigned: (M, 8) words."""
+    if index is not None:
+        safe = umin(index, effective_balance.shape[0] - 1)
+        leaves = ValidatorLeaves(leaves.pubkey_root[safe],
+                                 leaves.credentials[safe])
+        (effective_balance, slashed, activation_eligibility_epoch,
+         activation_epoch, exit_epoch, withdrawable_epoch) = (
+            a[safe] for a in (effective_balance, slashed,
+                              activation_eligibility_epoch, activation_epoch,
+                              exit_epoch, withdrawable_epoch))
     f = [leaves.pubkey_root, leaves.credentials,
          u64_leaf_words(effective_balance),
          u64_leaf_words(slashed.to(torch.int64)),
@@ -160,7 +171,7 @@ def _zero_rows_from(rows: torch.Tensor, length) -> torch.Tensor:
 def _lib():
     lib = _build.load("records_root")
     lib.records_root_launch.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 2 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
     lib.records_root_launch.restype = ctypes.c_int
     return lib
 
@@ -168,8 +179,9 @@ def _lib():
 def validator_records_root_kernel(leaves: ValidatorLeaves, effective_balance,
                                   slashed, activation_eligibility_epoch,
                                   activation_epoch, exit_epoch,
-                                  withdrawable_epoch, length=None):
-    """K3 on CUDA tensors, the pad-row masking fused in."""
+                                  withdrawable_epoch, length=None, index=None):
+    """K3 on CUDA tensors, the pad-row masking fused in; with `index`,
+    K3's gather mode, which reads the rows through the index."""
     u64s = [effective_balance, activation_eligibility_epoch,
             activation_epoch, exit_epoch, withdrawable_epoch]
     _build.require_cuda("records_root", leaves.pubkey_root,
@@ -182,34 +194,46 @@ def validator_records_root_kernel(leaves: ValidatorLeaves, effective_balance,
             a.dtype != torch.int64 or a.shape != (n,) for a in u64s):
         raise ValueError("records_root: fields must be (N,) int64, "
                          "slashed (N,) bool")
-    out = torch.empty((n, 8), dtype=torch.int32,
+    m, counter, index_ptr = n, "records_root", None
+    if index is not None:
+        _build.require_cuda("records_root", effective_balance, index)
+        if index.dtype != torch.int64 or index.dim() != 1:
+            raise ValueError("records_root: index must be (M,) int64")
+        if index.shape[0] and not n:
+            raise ValueError("records_root: gather from an empty registry")
+        m, counter, index_ptr = (index.shape[0], "records_root_gather",
+                                 index.data_ptr())
+    out = torch.empty((m, 8), dtype=torch.int32,
                       device=effective_balance.device)
-    if n:
-        length = n if length is None else min(int(length), n)
+    if m:
+        length = m if length is None else min(int(length), m)
         _build.check(_lib().records_root_launch(
             leaves.pubkey_root.data_ptr(), leaves.credentials.data_ptr(),
             effective_balance.data_ptr(), slashed.data_ptr(),
             activation_eligibility_epoch.data_ptr(),
             activation_epoch.data_ptr(), exit_epoch.data_ptr(),
-            withdrawable_epoch.data_ptr(), out.data_ptr(), n, length,
-            _build.stream_ptr(out)), "records_root")
-        _build.launches["records_root"] += 1
+            withdrawable_epoch.data_ptr(), index_ptr, out.data_ptr(), m, n,
+            length, _build.stream_ptr(out)), counter)
+        _build.launches[counter] += 1
     return out
 
 
 def validator_records_root(leaves: ValidatorLeaves, effective_balance,
                            slashed, activation_eligibility_epoch,
                            activation_epoch, exit_epoch, withdrawable_epoch,
-                           length=None):
+                           length=None, index=None):
     """(N, 8) root words of each Validator record: the plain version for
     CPU tensors, K3 for CUDA tensors.  Rows with index >= `length` (when
-    given) are zero chunks, as `validator_registry_root` needs them."""
+    given) are zero chunks, as `validator_registry_root` needs them.
+    With `index` ((M,) int64), the (M, 8) roots of validators
+    min(index[i], N - 1): `bench.py`'s `dirty_record_roots`, K3's gather
+    mode on CUDA."""
     fn = (validator_records_root_plain
           if effective_balance.device.type == "cpu"
           else validator_records_root_kernel)
     return fn(leaves, effective_balance, slashed,
               activation_eligibility_epoch, activation_epoch, exit_epoch,
-              withdrawable_epoch, length)
+              withdrawable_epoch, length, index)
 
 
 def validator_registry_root(record_roots: torch.Tensor, length: int,

@@ -154,7 +154,8 @@ def test_port_modules_import_without_jax():
     (counted against what the interpreter had loaded before)."""
     code = ("import sys; before = set(sys.modules); "
             "import consensus_specs_tpu_torch, "
-            "consensus_specs_tpu_torch.convert; "
+            "consensus_specs_tpu_torch.convert, "
+            "consensus_specs_tpu_torch.parallel.incremental; "
             "bad = [m for m in set(sys.modules) - before if m == 'jax' "
             "or m.startswith('jax.') or m == 'consensus_specs_tpu' "
             "or m.startswith('consensus_specs_tpu.')]; "
