@@ -28,7 +28,21 @@ and PyTorch built for CUDA.  The script:
    kernel of that step to be > 0, and times it and its stages;
 6. emits 1024 SSZ proofs from the balances forest and verifies each
    against the list root;
-7. prints one JSON line per the kernels held, then, last, the result
+7. slice 3, BLS: holds K7 (`bls_field_ops`) canonically equal to the
+   plain field and tower ops on 1024 random elements and on edge values;
+   builds `bench_bls.py`'s config #2 inputs (128 statements, each the
+   aggregate of 64 keys) from a seed; runs `batch_verify` at B = 128
+   through K8 -> K9 -> K10 with a seeded `random.Random`, requires each
+   kernel launched once and its output (r·PK affine and its infinity
+   flags, the signature lanes, the G2 sum, the Miller product, the final
+   exponentiation, the verdict) canonically equal to the plain version's
+   on the card; settles the same statements once more through the
+   `DeferredBatch` facade; requires a batch with one signature by a
+   wrong key rejected and a batch with one-sided infinity to give the
+   host oracle's verdict; times the batch (host prep apart from the
+   device time of each kernel), with verifies per second, peak memory
+   and each kernel's int32-issue bound;
+8. prints one JSON line per the kernels held, then, last, the result
    line `{"ok": true, "device": {...}}`.
 
 Every phase is fatal: any failure raises and the script exits non-zero
@@ -62,6 +76,20 @@ PROFILED_KERNELS = {
 SLEEP_CYCLES = 2_000_000             # about 1 ms at the H100's clocks
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64              # 32-bit integer results per SM per clock
+# BLS, slice 3: bench_bls.py's config #2 (128 aggregate attestations of
+# 64-strong committees, its seed base 1000), the RLC coefficients from
+# random.Random(BLS_RNG_SEED)
+BLS_TASKS = 128
+BLS_COMMITTEE = 64
+BLS_SEED_BASE = 1000
+BLS_RNG_SEED = 0
+BLS_TIMED = 5
+BLS_FIELD_N = 1024
+# a CIOS Montgomery product over 12 32-bit words is 2 x 144 32x32->64
+# multiply-adds, each at least two 32-bit integer instructions (the low
+# and the high half); the carries and the final subtraction are not
+# counted, so the bound is a floor
+OPS_PER_MONT = 2 * 144 * 2
 # 32-bit integer instructions of one 64-byte message (two compressions):
 # a round is 14 (three funnel-shift rotations and one three-input logic op
 # for each of the two Sigmas, one logic op each for Ch and Maj, four adds);
@@ -513,6 +541,317 @@ def incremental_path(inp, params):
     return counts, proof_counts, per
 
 
+# --- slice 3: BLS --------------------------------------------------------------
+
+
+def bls_tasks(n_tasks: int, keys_per_task: int, seed_base: int):
+    """`bench_bls.py:67 _build_tasks`'s recipe, copied: statement t signs
+    the 32-byte message seed_base + t with the aggregate secret key of
+    its committee, sum_i (seed_base + t * keys + i + 1), so each is one
+    scalar multiplication per side and identical in shape to a real
+    aggregate.  Returns (agg_pk, msg, sig) oracle points and their wire
+    bytes."""
+    from consensus_specs_tpu_torch.ops.bls import ciphersuite as cs
+    from consensus_specs_tpu_torch.ops.bls.curve import g1, g2
+    from consensus_specs_tpu_torch.ops.bls.hash_to_curve import (DST_G2,
+                                                                 hash_to_g2)
+
+    tasks, raw = [], []
+    for t in range(n_tasks):
+        msg = (seed_base + t).to_bytes(32, "little")
+        h = hash_to_g2(msg, DST_G2)
+        agg_sk = sum(seed_base + t * keys_per_task + i + 1
+                     for i in range(keys_per_task))
+        pk = g1.mul(cs.G1_GEN, agg_sk)
+        sig = g2.mul(h, agg_sk)
+        tasks.append((pk, msg, sig))
+        raw.append((cs.g1_to_bytes(pk), msg, cs.g2_to_bytes(sig)))
+    return tasks, raw
+
+
+def bls_products(r_bits, n_live: int) -> dict:
+    """Montgomery products each BLS kernel must do for this batch, from
+    the algorithm and this run's data (the live lanes' scalar bits; the
+    pad lanes and masked lanes need none): G1 doubling 7 and addition
+    16, G2 (Fq2: a product 3, a square 2) doubling 16 and addition 43, an
+    inversion by p - 2 (380 squares and popcount - 1 products), a Miller
+    doubling step 41 and addition step 73 per lane, an Fq12 product 54
+    and square 36, the final exponentiation's 5 powers by |x|."""
+    from consensus_specs_tpu_torch.ops.bls.fields import BLS_X, Q
+
+    inv = (Q - 2).bit_length() - 1 + bin(Q - 2).count("1") - 1
+    live_bits = r_bits[:n_live]
+    adds = int(live_bits.sum()) - n_live     # the first add meets infinity
+    nbits = live_bits.shape[1]
+    k8 = (n_live * nbits * (7 + 16) + adds * (16 + 43)
+          + n_live * (inv + 4))
+    x_bits = abs(BLS_X).bit_length() - 1
+    x_adds = bin(abs(BLS_X)).count("1") - 1
+    lanes = n_live + 1
+    k9 = ((n_live - 1) * 43 + inv + 2 + 4 * 3 + 2
+          + lanes * (x_bits * 41 + x_adds * 73)
+          + (x_bits + x_adds) * (lanes - 1) * 54
+          + x_bits * 36 + (x_bits + x_adds) * 54)
+    pow_x = x_bits * 36 + x_adds * 54
+    fp6_inv = 3 * 2 + 9 * 3 + inv + 4
+    k10 = (2 * 18 + fp6_inv + 2 * 18) + 5 * pow_x + 9 * 54 + 36 + 3 * 36
+    return {"rlc_scalar_mul": k8, "rlc_miller_product": k9,
+            "final_exp_is_one": k10}
+
+
+def check_bls_field_kernels(dev, record, int32_ops_per_s):
+    """K7 against the plain field and tower ops on BLS_FIELD_N random
+    canonical elements (plus edge values: 0, 1, p - 1, p, inverses of
+    0) and on signed-lazy limbs for `fq_canon`; every op of K7 and the
+    Frobenius powers 1, 2, 6."""
+    import random
+
+    import torch
+
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch.ops.bls.fields import Q
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+
+    r = random.Random(SEED + 3)
+
+    def rand(*shape):
+        n = int(np.prod(shape))
+        return torch.from_numpy(np.stack(
+            [F.to_mont(r.randrange(Q)) for _ in range(n)]).reshape(
+                shape + (33,))).to(dev)
+
+    n = BLS_FIELD_N
+    edge = torch.from_numpy(np.stack(
+        [np.zeros(33, np.int32), F.ONE_MONT, F.int_to_limbs(1),
+         F.to_mont(Q - 1), F.P_LIMBS])).to(dev)
+    a1, b1 = torch.cat([rand(n), edge]), torch.cat([rand(n), edge.flip(0)])
+    a2, b2 = rand(n, 2), rand(n, 2)
+    a2[0] = 0
+    a12, b12 = rand(n, 2, 3, 2), rand(n, 2, 3, 2)
+    a12[0] = 0
+    lazy = torch.from_numpy(np.random.RandomState(SEED).randint(
+        -2**13, 2**13, (n, 33)).astype(np.int32)).to(dev)
+    cases = [("fq_mul", a1, b1, 0), ("fq_inv", a1, None, 0),
+             ("fq_canon", lazy, None, 0), ("fq2_mul", a2, b2, 0),
+             ("fq2_inv", a2, None, 0), ("fq12_mul", a12, b12, 0),
+             ("fq12_sqr", a12, None, 0), ("fq12_inv", a12, None, 0),
+             ("fq12_frobenius", a12, None, 1),
+             ("fq12_frobenius", a12, None, 2),
+             ("fq12_frobenius", a12, None, 6)]
+    _build.reset_launches()
+    err = 0
+    for op, a, b, k in cases:
+        err = max(err, require_equal(
+            f"bls_field_ops {op}({k})", K.field_op(op, a, b, k),
+            K.field_op(op, a, b, k, plain=True)))
+    if not K.field_op("fq_inv", edge[:1])[0].eq(0).all():
+        raise AssertionError("bls_field_ops: inv(0) is not 0")
+    counts = read_launches("bls field checks")
+    print(f"bls field checks: {len(cases)} ops on {n} elements each "
+          f"(fq_mul and fq_inv also on 0, 1, 1/R, p - 1, p): equal")
+    record("bls_field_ops", "consensus_specs_tpu_torch/csrc/bls_rlc.cu",
+           "consensus_specs_tpu/ops/bls_batch/tower.py:224", err,
+           device_ms(lambda: K.field_op("fq12_mul", a12, b12), 5),
+           cuda_ms(lambda: K.field_op("fq12_mul", a12, b12, plain=True), 1),
+           n * 54 * OPS_PER_MONT / int32_ops_per_s * 1e3, "operations",
+           shape=f"fq12_mul over {n} elements (the op timed); not on the "
+           "main path", replaces_also=[
+               "consensus_specs_tpu/ops/bls_batch/fq.py:119",
+               "consensus_specs_tpu/ops/bls_batch/tower.py:96",
+               "consensus_specs_tpu/ops/bls_batch/tower.py:258",
+               "consensus_specs_tpu/ops/bls_batch/tower.py:292"])
+    return counts
+
+
+def _canon_equal(name, got, plain):
+    """A kernel output against the canonical plain one (flags as they
+    are)."""
+    import torch
+
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+
+    if plain.dtype == torch.bool:
+        return require_equal(name, got, plain)
+    return require_equal(name, got, F.fq_canon(plain))
+
+
+def bls_path(dev, record, int32_ops_per_s):
+    """The RLC batch verify at B = 128 on config #2's statements: the
+    main path through K8 -> K9 -> K10, each output held against the
+    plain stage on the card, the facade, the rejections, the timings.
+    Returns the launch counts of the batch and of the facade's batch."""
+    import random
+
+    import torch
+
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch.ops import bls as BLS
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls import ciphersuite as cs
+    from consensus_specs_tpu_torch.ops.bls import curve as curve
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+
+    t0 = time.perf_counter()
+    tasks, raw = bls_tasks(BLS_TASKS, BLS_COMMITTEE, BLS_SEED_BASE)
+    print(f"bls inputs: {len(tasks)} statements of {BLS_COMMITTEE}-key "
+          f"aggregates (bench_bls config #2, seed base {BLS_SEED_BASE}), "
+          f"built in {time.perf_counter() - t0:.3f} s")
+
+    # -- the main path: one batch through K8 -> K9 -> K10 -----------------
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    trace = {}
+    ok = B.batch_verify(tasks, rng=random.Random(BLS_RNG_SEED), device=dev,
+                        trace=trace)
+    torch.cuda.synchronize()
+    counts = read_launches("bls batch")
+    for name in ("rlc_scalar_mul", "rlc_miller_product", "final_exp_is_one"):
+        if counts.get(name, 0) != 1:
+            raise AssertionError(f"the BLS batch launched {name} "
+                                 f"{counts.get(name, 0)} times, not once")
+    if ok is not True:
+        raise AssertionError("the valid config #2 batch was rejected")
+    inputs = trace["inputs"]
+    pk_x, pk_y, sig_x, sig_y, h_x, h_y, r_bits, mask = inputs
+    if tuple(pk_x.shape) != (BLS_TASKS, 33) or not bool(mask.all()):
+        raise AssertionError(f"bls batch shape {tuple(pk_x.shape)}")
+    h_ok = torch.ones_like(mask)
+
+    # -- each kernel's output against its plain stage on the card ---------
+    plain_ms = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p8 = B.rlc_scalar_mul(pk_x, pk_y, sig_x, sig_y, r_bits, mask, plain=True)
+    torch.cuda.synchronize()
+    plain_ms["rlc_scalar_mul"] = (time.perf_counter() - t0) * 1e3
+    err8 = max(_canon_equal("rlc_scalar_mul apx", trace["apx"], p8[0]),
+               _canon_equal("rlc_scalar_mul apy", trace["apy"], p8[1]),
+               _canon_equal("rlc_scalar_mul a_inf", trace["a_inf"], p8[2]),
+               *(_canon_equal(f"rlc_scalar_mul r_sig[{i}]",
+                              trace["r_sig"][i], p8[3][i])
+                 for i in range(3)))
+    t0 = time.perf_counter()
+    f9, s9 = B.rlc_miller_product(trace["apx"], trace["apy"], trace["a_inf"],
+                                  trace["r_sig"], h_x, h_y, h_ok, mask,
+                                  plain=True)
+    torch.cuda.synchronize()
+    plain_ms["rlc_miller_product"] = (time.perf_counter() - t0) * 1e3
+    err9 = max(_canon_equal("G2 sum x", trace["sum_sig"][0], s9[0]),
+               _canon_equal("G2 sum y", trace["sum_sig"][1], s9[1]),
+               _canon_equal("G2 sum inf", trace["sum_sig"][2], s9[2]),
+               _canon_equal("Miller product", trace["miller"], f9))
+    t0 = time.perf_counter()
+    fe, ok10 = B.final_exp_is_one(trace["miller"], plain=True)
+    torch.cuda.synchronize()
+    plain_ms["final_exp_is_one"] = (time.perf_counter() - t0) * 1e3
+    err10 = max(_canon_equal("final exponentiation", trace["final_exp"], fe),
+                _canon_equal("verdict", trace["ok"], ok10))
+    print("bls kernels equal their plain stages on the card: r·PK affine "
+          "and flags, the signature lanes, the G2 sum, the Miller product, "
+          "the final exponentiation, the verdict; plain ms "
+          + json.dumps({k: round(v, 3) for k, v in plain_ms.items()}))
+
+    # -- the facade: the same statements recorded and settled -------------
+    # the facade's default backend ("torch") settles on the card
+    if BLS.backend_name() != "torch":
+        raise AssertionError("the BLS facade does not default to the card")
+    with BLS.deferred_batch_verification() as batch:
+        for pk_b, msg, sig_b in raw:
+            if not BLS.FastAggregateVerify([pk_b], msg, sig_b):
+                raise AssertionError("a valid statement failed parsing")
+    _build.reset_launches()
+    settled = batch.verify(rng=random.Random(BLS_RNG_SEED))
+    torch.cuda.synchronize()
+    facade_counts = read_launches("bls deferred batch")
+    if settled is not True or not all(h.result() for h in batch.handles):
+        raise AssertionError("the DeferredBatch facade rejected the batch")
+    print(f"bls DeferredBatch: {len(batch.tasks)} recorded statements "
+          f"settled True in one batch")
+
+    # -- rejections ------------------------------------------------------
+    wrong = list(tasks)
+    pk, msg, _ = wrong[7]
+    wrong[7] = (pk, msg, curve.g2.mul(tasks[7][2], 2))
+    if B.batch_verify(wrong, rng=random.Random(BLS_RNG_SEED + 1),
+                      device=dev) is not False:
+        raise AssertionError("a batch with a wrong signature was accepted")
+    one_sided = [tasks[0], (tasks[1][0], tasks[1][1], curve.g2.infinity())]
+    oracle = all(cs._pairing_check(cs.fast_aggregate_pairs(t))
+                 for t in one_sided)
+    got = B.batch_verify(one_sided, rng=random.Random(BLS_RNG_SEED),
+                         device=dev)
+    if got is not oracle:
+        raise AssertionError(f"one-sided infinity: {got} against the host "
+                             f"oracle's {oracle}")
+    print(f"bls rejections: a wrong signature at slot 7 rejected; "
+          f"one-sided infinity {got}, as the host oracle")
+
+    # -- timings -----------------------------------------------------------
+    def run():
+        return B.batch_verify(tasks, rng=random.Random(BLS_RNG_SEED),
+                              device=dev)
+
+    run()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls, preps = [], []
+    for _ in range(BLS_TIMED):
+        # host prep alone, then the whole entry point, in turns
+        t0 = time.perf_counter()
+        B._prepare_rlc_inputs(tasks, random.Random(BLS_RNG_SEED))
+        preps.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        if run() is not True:
+            raise AssertionError("the timed batch was rejected")
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    dev_ms = {
+        "rlc_scalar_mul": device_ms(lambda: K.rlc_scalar_mul_kernel(
+            pk_x, pk_y, sig_x, sig_y, r_bits, mask), 5),
+        "rlc_miller_product": device_ms(lambda: K.rlc_miller_product_kernel(
+            trace["apx"], trace["apy"], trace["a_inf"], trace["r_sig"], h_x,
+            h_y, h_ok, mask), 5),
+        "final_exp_is_one": device_ms(
+            lambda: K.final_exp_is_one_kernel(trace["miller"]), 5),
+    }
+    device_total = sum(dev_ms.values())
+    wall = statistics.median(walls)
+    prep = statistics.median(preps)
+    print(f"bls batch: B={BLS_TASKS} median_ms={wall:.4f} "
+          f"min_ms={min(walls):.4f} max_ms={max(walls):.4f} "
+          f"host_prep_median_ms={prep:.4f} (hash-to-G2, parsing, packing; "
+          f"min {min(preps):.4f} max {max(preps):.4f}) "
+          f"device_ms={device_total:.6f} (CUDA events: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in dev_ms.items())
+          + f") device_share={device_total / wall:.4f} "
+          f"batch_peak_mem_bytes={peak} "
+          f"launches_per_batch={sum(counts.values())}")
+    print(f"bls verifies per second: {BLS_TASKS / wall * 1e3:.3f} "
+          f"(batch wall), {BLS_TASKS / device_total * 1e3:.3f} (device "
+          f"time); plain batch on the card "
+          f"{sum(plain_ms.values()):.3f} ms")
+
+    products = bls_products(r_bits.cpu().numpy(), BLS_TASKS)
+    sources = {"rlc_scalar_mul": "consensus_specs_tpu/ops/bls_batch/"
+               "curve_jax.py:147",
+               "rlc_miller_product": "consensus_specs_tpu/ops/bls_batch/"
+               "pairing_jax.py:133",
+               "final_exp_is_one": "consensus_specs_tpu/ops/bls_batch/"
+               "pairing_jax.py:297"}
+    for name, err in (("rlc_scalar_mul", err8), ("rlc_miller_product", err9),
+                      ("final_exp_is_one", err10)):
+        record(name, "consensus_specs_tpu_torch/csrc/bls_rlc.cu",
+               sources[name], err, dev_ms[name], plain_ms[name],
+               products[name] * OPS_PER_MONT / int32_ops_per_s * 1e3,
+               "operations", montgomery_products=products[name],
+               shape=f"B={BLS_TASKS} statements, {BLS_TASKS + 1} pairing "
+               "lanes")
+    return counts, facade_counts
+
+
 def main() -> int:
     import torch
 
@@ -723,15 +1062,26 @@ def main() -> int:
             kernels[name]["step_device_ms"] = sum(step_device.get(k, 0.0)
                                                   for k in names)
 
+    # -- slice 3: the RLC batch verify -------------------------------------
+    field_counts = check_bls_field_kernels(dev, record, int32_ops_per_s)
+    bls_counts, facade_counts = bls_path(dev, record, int32_ops_per_s)
+
     paths = {"full_step": full_counts, "incremental_step": incr_counts,
-             "proofs": proof_counts}
+             "proofs": proof_counts, "bls_batch": bls_counts,
+             "bls_deferred_batch": facade_counts}
     for k in kernels.values():
         by = {p: c[k["name"]] for p, c in paths.items() if c.get(k["name"])}
+        if k["name"] == "bls_field_ops":
+            # K7 holds rows 7-8; no path runs it
+            k["launches_by_path"] = {"field_checks":
+                                     field_counts["bls_field_ops"]}
+            k["launches"] = 0
+            continue
         if not by:
             raise AssertionError(f"no path launched kernel {k['name']}")
         k["launches_by_path"] = by
         k["launches"] = (by.get("incremental_step") or by.get("full_step")
-                         or by["proofs"])
+                         or by.get("bls_batch") or by["proofs"])
 
     for k in kernels.values():
         print(f"kernel {k['name']}: launches={k['launches']} "

@@ -1,0 +1,472 @@
+// Kernels K7-K10: the random-linear-combination (RLC) batch verify of B
+// FastAggregateVerify statements, host-hashed, and a field-op kernel that
+// holds the device arithmetic against the plain versions.
+//
+//   K7 bls_field_ops       one of fq_mul, fq_inv, fq_canon, fq2_mul,
+//                          fq2_inv, fq12_mul, fq12_sqr, fq12_inv,
+//                          fq12_frobenius(k), elementwise (holds rows 7-8
+//                          of the kernel table; not on the main path)
+//   K8 rlc_scalar_mul      r_i PK_i (G1, to affine with an infinity flag)
+//                          and r_i S_i (G2, Jacobian; pad lanes infinity)
+//                          by 128-bit MSB-first double-and-add
+//                          (replaces curve_jax.py:147 pt_scalar_mul and
+//                          bls_batch/__init__.py:200 g1_to_affine_dev,
+//                          as `_rlc_pairing_core` runs them)
+//   K9 rlc_miller_product  the tree sum of the signature lanes
+//                          (curve_jax.py:252 pt_sum) and its affine form
+//                          (bls_batch/__init__.py:209), then the shared-
+//                          accumulator Miller product over the B + 1 lanes
+//                          (r_i PK_i, H_i) and (-G1, sum)
+//                          (pairing_jax.py:133 miller_product_batch)
+//   K10 final_exp_is_one   pairing_jax.py:297 final_exponentiate (the
+//                          cube of the standard pairing value) and
+//                          tower.py fq12_is_one
+//
+// Inputs and outputs are the port's boundary format (bls12_381.cuh):
+// (..., 33) int32 limbs, R = 2^396; outputs are canonical.
+//
+// Design, first version: the work is a chain of dependent Montgomery
+// products per lane, and one batch has only B + 1 = 129 lanes, far less
+// than one wave of the card, so every kernel is latency-bound, not
+// issue-bound.  K8 runs one thread per lane and group (32-thread blocks,
+// one warp per SM).  K9 is one block: one thread per lane computes its
+// line each Miller step into a global scratch row, the block multiplies
+// the lines in a tree (128 Fq12 products in 8 levels per step), and
+// thread 0 folds the product into the accumulator.  K10 is one thread.
+// Every launcher returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "bls12_381.cuh"
+
+namespace {
+
+enum FieldOp {
+  OP_FQ_MUL = 0, OP_FQ_INV, OP_FQ_CANON, OP_FQ2_MUL, OP_FQ2_INV,
+  OP_FQ12_MUL, OP_FQ12_SQR, OP_FQ12_INV, OP_FQ12_FROBENIUS
+};
+
+// --- K7 --------------------------------------------------------------------
+
+__global__ void __launch_bounds__(64)
+bls_field_ops_kernel(int op, int k, const int32_t* __restrict__ a,
+                     const int32_t* __restrict__ b, int32_t* __restrict__ out,
+                     int64_t n) {
+  int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  if (op <= OP_FQ_CANON) {
+    Fp x, y;
+    load_fp(x, a + e * BLS_NL);
+    if (op == OP_FQ_MUL) {
+      load_fp(y, b + e * BLS_NL);
+      fp_mul(x, x, y);
+    } else if (op == OP_FQ_INV) {
+      fp_inv(x, x);
+    }
+    store_fp(out + e * BLS_NL, x);
+  } else if (op <= OP_FQ2_INV) {
+    Fp2 x, y;
+    load_fp2(x, a + e * 2 * BLS_NL);
+    if (op == OP_FQ2_MUL) {
+      load_fp2(y, b + e * 2 * BLS_NL);
+      fp2_mul(x, x, y);
+    } else {
+      fp2_inv(x, x);
+    }
+    store_fp2(out + e * 2 * BLS_NL, x);
+  } else {
+    Fp12 x, y;
+    load_fp12(x, a + e * 12 * BLS_NL);
+    if (op == OP_FQ12_MUL) {
+      load_fp12(y, b + e * 12 * BLS_NL);
+      fp12_mul(x, x, y);
+    } else if (op == OP_FQ12_SQR) {
+      fp12_sqr(x, x);
+    } else if (op == OP_FQ12_INV) {
+      fp12_inv(x, x);
+    } else {
+      fp12_frobenius(x, x, k);
+    }
+    store_fp12(out + e * 12 * BLS_NL, x);
+  }
+}
+
+// --- K8 --------------------------------------------------------------------
+
+__global__ void __launch_bounds__(32)
+rlc_scalar_mul_kernel(const int32_t* __restrict__ pk_x,
+                      const int32_t* __restrict__ pk_y,
+                      const int32_t* __restrict__ sig_x,
+                      const int32_t* __restrict__ sig_y,
+                      const int32_t* __restrict__ bits,
+                      const uint8_t* __restrict__ mask, int nbits, int B,
+                      int32_t* __restrict__ apx, int32_t* __restrict__ apy,
+                      uint8_t* __restrict__ a_inf, int32_t* __restrict__ sX,
+                      int32_t* __restrict__ sY, int32_t* __restrict__ sZ) {
+  int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  const int32_t* lane_bits = bits + (int64_t)lane * nbits;
+  if (blockIdx.y == 0) {                    // G1: r PK, then affine
+    Jac<Fp> p, acc;
+    load_fp(p.x, pk_x + lane * BLS_NL);
+    load_fp(p.y, pk_y + lane * BLS_NL);
+    fp_one(p.z);
+    pt_infinity(acc);
+    for (int i = 0; i < nbits; ++i) {
+      pt_double(acc, acc);
+      if (lane_bits[i]) pt_add(acc, acc, p);
+    }
+    Fp x, y;
+    bool inf = pt_to_affine(x, y, acc);
+    store_fp(apx + lane * BLS_NL, x);
+    store_fp(apy + lane * BLS_NL, y);
+    a_inf[lane] = inf;
+  } else {                                  // G2: r S, Jacobian
+    Jac<Fp2> p, acc;
+    load_fp2(p.x, sig_x + lane * 2 * BLS_NL);
+    load_fp2(p.y, sig_y + lane * 2 * BLS_NL);
+    fp2_one(p.z);
+    pt_infinity(acc);
+    for (int i = 0; i < nbits; ++i) {
+      pt_double(acc, acc);
+      if (lane_bits[i]) pt_add(acc, acc, p);
+    }
+    if (!mask[lane]) pt_infinity(acc);      // pad lanes leave the sum
+    store_fp2(sX + lane * 2 * BLS_NL, acc.x);
+    store_fp2(sY + lane * 2 * BLS_NL, acc.y);
+    store_fp2(sZ + lane * 2 * BLS_NL, acc.z);
+  }
+}
+
+// --- K9 --------------------------------------------------------------------
+
+struct MillerScratch {
+  Jac<Fp2>* sums;      // m >= B rows: the signature tree sum
+  Jac<Fp2>* T;         // n = B + 1 rows: the running G2 point per lane
+  Fp12* L;             // n rows: the lines of one step, then their product
+  Fp2* Q;              // n rows x 2: affine G2 argument per lane
+  Fp* P;               // n rows x 2: affine G1 argument per lane
+  uint8_t* live;       // n rows
+};
+
+// tangent at T evaluated at P = (xp, yp); T <- 2T
+__device__ __noinline__ void dbl_step(Fp12& line, Jac<Fp2>& T, const Fp& xp,
+                                      const Fp& yp) {
+  Fp2 XX, YY, ZZ, cx, cy, c0, t;
+  fp2_sqr(XX, T.x);
+  fp2_sqr(YY, T.y);
+  fp2_sqr(ZZ, T.z);
+  fp2_mul(cy, T.y, T.z);
+  fp2_mul(cy, cy, ZZ);
+  fp2_dbl(cy, cy);                          // 2 Y Z^3
+  fp2_mul(cx, XX, ZZ);
+  fp2_add(t, cx, cx);
+  fp2_add(cx, t, cx);
+  fp2_neg(cx, cx);                          // -3 X^2 Z^2
+  fp2_mul(c0, XX, T.x);
+  fp2_add(t, c0, c0);
+  fp2_add(c0, t, c0);
+  fp2_dbl(t, YY);
+  fp2_sub(c0, c0, t);                       // 3 X^3 - 2 Y^2
+  fp12_one(line);
+  line.c0.c0 = c0;
+  fp2_mul_fp(cx, cx, xp);
+  fp2_mul(fp12_slot(line, BLS.jx), cx, BLS.sx);
+  fp2_mul_fp(cy, cy, yp);
+  fp2_mul(fp12_slot(line, BLS.jy), cy, BLS.sy);
+  pt_double(T, T);
+}
+
+// chord through T and affine Q = (xq, yq), evaluated at P; T <- T + Q
+__device__ __noinline__ void add_step(Fp12& line, Jac<Fp2>& T, const Fp2& xq,
+                                      const Fp2& yq, const Fp& xp,
+                                      const Fp& yp) {
+  Fp2 ZZ, H, I, ZH, c0, t;
+  fp2_sqr(ZZ, T.z);
+  fp2_mul(t, xq, ZZ);
+  fp2_sub(H, T.x, t);                       // H = X - xq Z^2
+  fp2_mul(t, ZZ, T.z);
+  fp2_mul(t, yq, t);
+  fp2_sub(I, T.y, t);                       // I = Y - yq Z^3
+  fp2_mul(ZH, T.z, H);
+  fp2_mul(c0, I, xq);
+  fp2_mul(t, ZH, yq);
+  fp2_sub(c0, c0, t);                       // I xq - Z H yq
+  fp12_one(line);
+  line.c0.c0 = c0;
+  fp2_neg(I, I);
+  fp2_mul_fp(I, I, xp);
+  fp2_mul(fp12_slot(line, BLS.jx), I, BLS.sx);
+  fp2_mul_fp(ZH, ZH, yp);
+  fp2_mul(fp12_slot(line, BLS.jy), ZH, BLS.sy);
+  Jac<Fp2> q;
+  q.x = xq;
+  q.y = yq;
+  fp2_one(q.z);
+  pt_add(T, T, q);
+}
+
+// L[0] <- L[0] * ... * L[n-1], in place, by the whole block
+__device__ void tree_product(Fp12* L, int n) {
+  while (n > 1) {
+    int h = (n + 1) / 2;
+    for (int i = threadIdx.x; i < n - h; i += blockDim.x) {
+      Fp12 a = L[i], b = L[i + h];
+      fp12_mul(a, a, b);
+      L[i] = a;
+    }
+    __syncthreads();
+    n = h;
+  }
+}
+
+__global__ void __launch_bounds__(256)
+rlc_miller_product_kernel(const int32_t* __restrict__ apx,
+                          const int32_t* __restrict__ apy,
+                          const uint8_t* __restrict__ a_inf,
+                          const int32_t* __restrict__ sX,
+                          const int32_t* __restrict__ sY,
+                          const int32_t* __restrict__ sZ,
+                          const int32_t* __restrict__ hx,
+                          const int32_t* __restrict__ hy,
+                          const uint8_t* __restrict__ h_ok,
+                          const uint8_t* __restrict__ mask,
+                          const int32_t* __restrict__ g1x,
+                          const int32_t* __restrict__ g1y, int B, int m,
+                          MillerScratch s, int32_t* __restrict__ f_out,
+                          int32_t* __restrict__ sum_out,
+                          uint8_t* __restrict__ s_inf_out) {
+  const int tid = threadIdx.x, nt = blockDim.x, n = B + 1;
+  // the signature sum: pt_sum's tree (first half plus second), the
+  // rows past B infinity
+  for (int i = tid; i < m; i += nt) {
+    if (i < B) {
+      load_fp2(s.sums[i].x, sX + i * 2 * BLS_NL);
+      load_fp2(s.sums[i].y, sY + i * 2 * BLS_NL);
+      load_fp2(s.sums[i].z, sZ + i * 2 * BLS_NL);
+    } else {
+      pt_infinity(s.sums[i]);
+    }
+  }
+  __syncthreads();
+  for (int w = m / 2; w >= 1; w /= 2) {
+    for (int i = tid; i < w; i += nt) {
+      Jac<Fp2> a = s.sums[i], b = s.sums[i + w];
+      pt_add(a, a, b);
+      s.sums[i] = a;
+    }
+    __syncthreads();
+  }
+  // the lanes: (r_i PK_i, H_i) for i < B, then (-G1, sum)
+  for (int i = tid; i < n; i += nt) {
+    Fp2 xq, yq;
+    if (i < B) {
+      load_fp(s.P[2 * i], apx + i * BLS_NL);
+      load_fp(s.P[2 * i + 1], apy + i * BLS_NL);
+      load_fp2(xq, hx + i * 2 * BLS_NL);
+      load_fp2(yq, hy + i * 2 * BLS_NL);
+      s.live[i] = mask[i] && !a_inf[i] && h_ok[i];
+    } else {
+      load_fp(s.P[2 * i], g1x);
+      load_fp(s.P[2 * i + 1], g1y);
+      bool inf = pt_to_affine(xq, yq, s.sums[0]);
+      store_fp2(sum_out, xq);
+      store_fp2(sum_out + 2 * BLS_NL, yq);
+      *s_inf_out = inf;
+      s.live[i] = !inf;
+    }
+    s.Q[2 * i] = xq;
+    s.Q[2 * i + 1] = yq;
+    s.T[i].x = xq;
+    s.T[i].y = yq;
+    fp2_one(s.T[i].z);
+  }
+  __syncthreads();
+
+  Fp12 f;
+  fp12_one(f);
+  const uint64_t x_abs = ((uint64_t)BLS.x_abs_hi << 32) | BLS.x_abs_lo;
+  int top = 63;
+  while (!((x_abs >> top) & 1)) --top;
+  for (int bit = top - 1; bit >= 0; --bit) {
+    const bool add = (x_abs >> bit) & 1;
+    for (int pass = 0; pass < (add ? 2 : 1); ++pass) {
+      for (int i = tid; i < n; i += nt) {
+        Fp12 line;
+        Jac<Fp2> T = s.T[i];
+        if (pass == 0) dbl_step(line, T, s.P[2 * i], s.P[2 * i + 1]);
+        else add_step(line, T, s.Q[2 * i], s.Q[2 * i + 1], s.P[2 * i],
+                      s.P[2 * i + 1]);
+        s.T[i] = T;
+        if (!s.live[i]) fp12_one(line);
+        s.L[i] = line;
+      }
+      if (tid == 0 && pass == 0) fp12_sqr(f, f);
+      __syncthreads();
+      tree_product(s.L, n);
+      if (tid == 0) {
+        Fp12 l = s.L[0];
+        fp12_mul(f, f, l);
+      }
+      __syncthreads();
+    }
+  }
+  if (tid == 0) {
+    fp12_conj(f, f);                        // negative BLS parameter
+    store_fp12(f_out, f);
+  }
+}
+
+// --- K10 -------------------------------------------------------------------
+
+__device__ __noinline__ void fp12_pow_x_abs(Fp12& r, const Fp12& g) {
+  const uint64_t x_abs = ((uint64_t)BLS.x_abs_hi << 32) | BLS.x_abs_lo;
+  Fp12 acc;
+  fp12_one(acc);
+  for (int bit = 63; bit >= 0; --bit) {
+    fp12_sqr(acc, acc);
+    if ((x_abs >> bit) & 1) fp12_mul(acc, acc, g);
+  }
+  r = acc;
+}
+
+// g^x (x negative): conj(g^|x|)
+__device__ __noinline__ void fp12_pow_x(Fp12& r, const Fp12& g) {
+  fp12_pow_x_abs(r, g);
+  fp12_conj(r, r);
+}
+
+__global__ void __launch_bounds__(1)
+final_exp_is_one_kernel(const int32_t* __restrict__ f_in,
+                        int32_t* __restrict__ fe_out,
+                        uint8_t* __restrict__ ok) {
+  Fp12 f, f1, m, t, u, t1, t2, t3;
+  load_fp12(f, f_in);
+  // easy part: f^((q^6 - 1)(q^2 + 1))
+  fp12_conj(t, f);
+  fp12_inv(u, f);
+  fp12_mul(f1, t, u);
+  fp12_frobenius(t, f1, 2);
+  fp12_mul(m, t, f1);
+  // t1 = m^((x - 1)^2): pow_xm1(g) = g^x conj(g), twice
+  fp12_pow_x(t, m);
+  fp12_conj(u, m);
+  fp12_mul(t, t, u);
+  fp12_pow_x(t1, t);
+  fp12_conj(u, t);
+  fp12_mul(t1, t1, u);
+  // t2 = t1^x frob(t1, 1)
+  fp12_pow_x(t2, t1);
+  fp12_frobenius(u, t1, 1);
+  fp12_mul(t2, t2, u);
+  // t3 = (t2^x)^x frob(t2, 2) conj(t2)
+  fp12_pow_x(t3, t2);
+  fp12_pow_x(t3, t3);
+  fp12_frobenius(u, t2, 2);
+  fp12_mul(t3, t3, u);
+  fp12_conj(u, t2);
+  fp12_mul(t3, t3, u);
+  // result = t3 m^3
+  fp12_sqr(u, m);
+  fp12_mul(u, u, m);
+  fp12_mul(t3, t3, u);
+  store_fp12(fe_out, t3);
+  *ok = fp12_is_one(t3);
+}
+
+}  // namespace
+
+extern "C" {
+
+int bls_set_constants(const uint32_t* words, int n_words) {
+  if (n_words * 4 != (int)sizeof(BlsConstants)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaMemcpyToSymbol(BLS, words, sizeof(BlsConstants));
+  if (err != cudaSuccess) return err;
+  // the kernels' frames are large (an Fp12 is 576 bytes): raise the
+  // per-thread stack limit to the largest so no launch is refused
+  cudaFuncAttributes attr;
+  size_t need = 0;
+  const void* kernels[] = {(const void*)bls_field_ops_kernel,
+                           (const void*)rlc_scalar_mul_kernel,
+                           (const void*)rlc_miller_product_kernel,
+                           (const void*)final_exp_is_one_kernel};
+  for (const void* k : kernels) {
+    err = cudaFuncGetAttributes(&attr, k);
+    if (err != cudaSuccess) return err;
+    if (attr.localSizeBytes > need) need = attr.localSizeBytes;
+  }
+  size_t cur = 0;
+  err = cudaDeviceGetLimit(&cur, cudaLimitStackSize);
+  if (err != cudaSuccess) return err;
+  if (need > cur) err = cudaDeviceSetLimit(cudaLimitStackSize, need);
+  return err;
+}
+
+int bls_field_ops_launch(int op, int k, const int32_t* a, const int32_t* b,
+                         int32_t* out, int64_t n, cudaStream_t stream) {
+  const int threads = 64;
+  int64_t blocks = (n + threads - 1) / threads;
+  bls_field_ops_kernel<<<(unsigned)blocks, threads, 0, stream>>>(op, k, a, b,
+                                                                  out, n);
+  return cudaGetLastError();
+}
+
+int rlc_scalar_mul_launch(const int32_t* pk_x, const int32_t* pk_y,
+                          const int32_t* sig_x, const int32_t* sig_y,
+                          const int32_t* bits, const uint8_t* mask, int nbits,
+                          int B, int32_t* apx, int32_t* apy, uint8_t* a_inf,
+                          int32_t* sX, int32_t* sY, int32_t* sZ,
+                          cudaStream_t stream) {
+  dim3 grid((B + 31) / 32, 2);
+  rlc_scalar_mul_kernel<<<grid, 32, 0, stream>>>(
+      pk_x, pk_y, sig_x, sig_y, bits, mask, nbits, B, apx, apy, a_inf, sX,
+      sY, sZ);
+  return cudaGetLastError();
+}
+
+// scratch: at least rlc_miller_scratch_bytes(B) bytes, 16-byte aligned
+int64_t rlc_miller_scratch_bytes(int B) {
+  int64_t m = 1;
+  while (m < B) m *= 2;
+  int64_t n = B + 1;
+  return m * sizeof(Jac<Fp2>) + n * (sizeof(Jac<Fp2>) + sizeof(Fp12) +
+                                     2 * sizeof(Fp2) + 2 * sizeof(Fp) + 1);
+}
+
+int rlc_miller_product_launch(
+    const int32_t* apx, const int32_t* apy, const uint8_t* a_inf,
+    const int32_t* sX, const int32_t* sY, const int32_t* sZ,
+    const int32_t* hx, const int32_t* hy, const uint8_t* h_ok,
+    const uint8_t* mask, const int32_t* g1x, const int32_t* g1y, int B,
+    void* scratch, int32_t* f_out, int32_t* sum_out, uint8_t* s_inf_out,
+    int threads, cudaStream_t stream) {
+  int m = 1;
+  while (m < B) m *= 2;
+  int n = B + 1;
+  char* base = (char*)scratch;
+  MillerScratch s;
+  s.sums = (Jac<Fp2>*)base;
+  base += (size_t)m * sizeof(Jac<Fp2>);
+  s.T = (Jac<Fp2>*)base;
+  base += (size_t)n * sizeof(Jac<Fp2>);
+  s.L = (Fp12*)base;
+  base += (size_t)n * sizeof(Fp12);
+  s.Q = (Fp2*)base;
+  base += (size_t)n * 2 * sizeof(Fp2);
+  s.P = (Fp*)base;
+  base += (size_t)n * 2 * sizeof(Fp);
+  s.live = (uint8_t*)base;
+  rlc_miller_product_kernel<<<1, threads, 0, stream>>>(
+      apx, apy, a_inf, sX, sY, sZ, hx, hy, h_ok, mask, g1x, g1y, B, m, s,
+      f_out, sum_out, s_inf_out);
+  return cudaGetLastError();
+}
+
+int final_exp_is_one_launch(const int32_t* f, int32_t* fe, uint8_t* ok,
+                            cudaStream_t stream) {
+  final_exp_is_one_kernel<<<1, 1, 0, stream>>>(f, fe, ok);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels K1-K6 (and K3's gather mode) against their
-plain PyTorch versions on the card, bit for bit, at small shapes.  Every test here needs an NVIDIA
+"""The port's CUDA kernels K1-K10 (and K3's gather mode) against their
+plain PyTorch versions on the card, bit for bit (the BLS kernels at
+canonical values), at small shapes.  Every test here needs an NVIDIA
 GPU and nvcc; without a card they skip.  On the card, where JAX is not
 installed and so the suite's conftest cannot load:
 
@@ -166,6 +167,10 @@ def test_records_root_gather_kernel(dev):
     assert torch.equal(got, M.validator_records_root_plain(*args, index=idx))
 
 
+_BLS_KERNELS = ("bls_field_ops", "rlc_scalar_mul", "rlc_miller_product",
+                "final_exp_is_one")
+
+
 def test_incremental_step_on_the_card(dev):
     n = 4096
     reg = _registry(dev, n, seed=4)
@@ -174,7 +179,125 @@ def test_incremental_step_on_the_card(dev):
     sc = EpochScalars(100_000, 2, 32 * 10**9)
     _build.reset_launches()
     got = IncrementalEpochStep(MAINNET, reg, sc, leaves, dirty, device=dev)()
-    assert all(v > 0 for k, v in _build.launches.items() if k != "proof_paths")
+    assert all(v > 0 for k, v in _build.launches.items()
+               if k != "proof_paths" and k not in _BLS_KERNELS)
     want = IncrementalEpochStep(MAINNET, reg, sc, leaves, dirty, device=dev,
                                 plain=True)()
     assert all(torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, want))
+
+
+# --- slice 3: the BLS kernels K7-K10 ---------------------------------------------
+
+
+def _bls_rand(dev, shape, seed):
+    import random
+
+    from consensus_specs_tpu_torch.ops.bls.fields import Q
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+
+    r = random.Random(seed)
+    n = int(np.prod(shape))
+    return torch.from_numpy(np.stack([F.to_mont(r.randrange(Q))
+                                      for _ in range(n)]).reshape(
+        tuple(shape) + (33,))).to(dev)
+
+
+@pytest.mark.parametrize("op,k", [
+    ("fq_mul", 0), ("fq_inv", 0), ("fq_canon", 0), ("fq2_mul", 0),
+    ("fq2_inv", 0), ("fq12_mul", 0), ("fq12_sqr", 0), ("fq12_inv", 0),
+    ("fq12_frobenius", 1), ("fq12_frobenius", 2), ("fq12_frobenius", 6)])
+def test_bls_field_ops_kernel(dev, op, k):
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+
+    dims = K.FIELD_OPS[op][1]
+    shape = {1: (64,), 2: (64, 2), 4: (16, 2, 3, 2)}[dims]
+    a, b = _bls_rand(dev, shape, 1), _bls_rand(dev, shape, 2)
+    a[0] = 0                                   # inv(0) = 0, products by 0
+    if op == "fq_canon":                       # signed-lazy limbs
+        a = torch.from_numpy(np.random.RandomState(3).randint(
+            -2**13, 2**13, (64, 33)).astype(np.int32)).to(dev)
+    before = _build.launches["bls_field_ops"]
+    got = K.field_op(op, a, b, k)
+    torch.cuda.synchronize()
+    assert _build.launches["bls_field_ops"] == before + 1
+    assert torch.equal(got, K.field_op(op, a, b, k, plain=True))
+
+
+def _bls_tasks(n, forge=None):
+    from consensus_specs_tpu_torch.ops.bls import ciphersuite as cs
+
+    out = []
+    for t in range(n):
+        sk = 1000 + t
+        msg = (77 + t).to_bytes(32, "little")
+        out.append(cs.parse_fast_aggregate_task(
+            [cs.SkToPk(sk)], msg, cs.Sign(sk + (t == forge), msg)))
+    return out
+
+
+def test_rlc_kernels_against_plain_at_bucket_8(dev):
+    import random
+
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+
+    _build.reset_launches()
+    trace = {}
+    assert B.batch_verify(_bls_tasks(2), rng=random.Random(5), device=dev,
+                          trace=trace) is True
+    assert [_build.launches[k] for k in (
+        "rlc_scalar_mul", "rlc_miller_product", "final_exp_is_one")] == [1] * 3
+    plain = {}
+    B._rlc_pairing_core(*trace["inputs"][:6], torch.ones_like(
+        trace["inputs"][7]), trace["inputs"][6], trace["inputs"][7],
+        plain=True, trace=plain)
+
+    def canon(x):
+        if isinstance(x, tuple):
+            return tuple(canon(v) for v in x)
+        return x if x.dtype == torch.bool else F.fq_canon(x)
+
+    for part in ("apx", "apy", "a_inf", "r_sig", "sum_sig", "miller",
+                 "final_exp", "ok"):
+        got, want = trace[part], canon(plain[part])
+        if isinstance(got, tuple):
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), part
+        else:
+            assert torch.equal(got, want), part
+    assert trace["a_inf"].tolist() == [False] * 2 + [True] * 6
+
+
+def test_batch_verify_runs_on_the_card_by_default(dev):
+    import random
+
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls import curve
+
+    _build.reset_launches()
+    assert B.batch_verify(_bls_tasks(3), rng=random.Random(1)) is True
+    assert _build.launches["final_exp_is_one"] == 1
+    assert B.batch_verify(_bls_tasks(3, forge=2), rng=random.Random(1)) \
+        is False
+    tasks = _bls_tasks(2)
+    tasks[1] = (tasks[1][0], tasks[1][1], curve.g2.infinity())
+    assert B.batch_verify(tasks, rng=random.Random(1)) is False
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        B.batch_verify(tasks, device_h2c=True)
+
+
+def test_deferred_batch_settles_on_the_card(dev):
+    import random
+
+    from consensus_specs_tpu_torch.ops import bls as BLS
+    from consensus_specs_tpu_torch.ops.bls import ciphersuite as cs
+
+    assert BLS.backend_name() == "torch"            # the default
+    with BLS.deferred_batch_verification() as batch:
+        for t in range(2):
+            msg = (5 + t).to_bytes(32, "little")
+            assert BLS.FastAggregateVerify([cs.SkToPk(9 + t)], msg,
+                                           cs.Sign(9 + t, msg))
+    _build.reset_launches()
+    assert batch.verify(rng=random.Random(2)) is True
+    assert _build.launches["final_exp_is_one"] == 1
+    assert [h.result() for h in batch.handles] == [True, True]

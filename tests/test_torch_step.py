@@ -155,7 +155,9 @@ def test_port_modules_import_without_jax():
     code = ("import sys; before = set(sys.modules); "
             "import consensus_specs_tpu_torch, "
             "consensus_specs_tpu_torch.convert, "
-            "consensus_specs_tpu_torch.parallel.incremental; "
+            "consensus_specs_tpu_torch.parallel.incremental, "
+            "consensus_specs_tpu_torch.ops.bls, "
+            "consensus_specs_tpu_torch.ops.bls_batch; "
             "bad = [m for m in set(sys.modules) - before if m == 'jax' "
             "or m.startswith('jax.') or m == 'consensus_specs_tpu' "
             "or m.startswith('consensus_specs_tpu.')]; "
