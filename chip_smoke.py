@@ -7,7 +7,7 @@ from the root of the repository, on a machine with one CUDA card, nvcc
 and PyTorch built for CUDA.  The script:
 
 1. prints the card's name and power limit;
-2. builds the kernels K1-K6 from `consensus_specs_tpu_torch/csrc/` (one
+2. builds the kernels K1-K14 from `consensus_specs_tpu_torch/csrc/` (one
    nvcc per source, all started together) into the git-ignored
    `consensus_specs_tpu_torch/_build/`;
 3. runs each kernel and its plain PyTorch version on the card, on the
@@ -28,21 +28,30 @@ and PyTorch built for CUDA.  The script:
    kernel of that step to be > 0, and times it and its stages;
 6. emits 1024 SSZ proofs from the balances forest and verifies each
    against the list root;
-7. slice 3, BLS: holds K7 (`bls_field_ops`) canonically equal to the
-   plain field and tower ops on 1024 random elements and on edge values;
-   builds `bench_bls.py`'s config #2 inputs (128 statements, each the
-   aggregate of 64 keys) from a seed; runs `batch_verify` at B = 128
-   through K8 -> K9 -> K10 with a seeded `random.Random`, requires each
-   kernel launched once and its output (r·PK affine and its infinity
-   flags, the signature lanes, the G2 sum, the Miller product, the final
-   exponentiation, the verdict) canonically equal to the plain version's
-   on the card; settles the same statements once more through the
-   `DeferredBatch` facade; requires a batch with one signature by a
-   wrong key rejected and a batch with one-sided infinity to give the
-   host oracle's verdict; times the batch (host prep apart from the
-   device time of each kernel), with verifies per second, peak memory
-   and each kernel's int32-issue bound;
-8. prints one JSON line per the kernels held, then, last, the result
+7. BLS, slices 3 and 4: holds K7 (`bls_field_ops`) canonically equal to
+   the plain field and tower ops on 1024 random elements and on edge
+   values; builds `bench_bls.py`'s config #2 inputs (128 statements, each
+   the aggregate of 64 keys) from a seed; runs `batch_verify` at B = 128
+   with host hashing (K8 -> K9 -> K10) and with device hashing, its
+   default (K11 -> K8 -> K9 -> K10), requires each kernel launched once,
+   all 128 device hashes equal to the port oracle's, and every output
+   canonically equal to the plain version's on the card; settles the
+   same statements once more through the `DeferredBatch` facade;
+   requires, through both routes, a batch with one signature by a wrong
+   key rejected and a batch with one-sided infinity rejected (through
+   `pairing_check_device`); times both routes in turns (host prep apart,
+   the device time of each kernel), with verifies per second and each
+   kernel's int32-issue bound;
+8. config #3 (`bench_bls.py`'s one 512-key sync-committee statement):
+   `pairing_check_device` through K12 -> K10, K12 held against its plain
+   version, cold and warm times; the facade's eager
+   `FastAggregateVerify` over the 512 wire keys, `Verify` and
+   `AggregateVerify`, accept and reject, on the card;
+9. the G1 MSM on `bench_bls.py`'s probe at 16, 512 (Pippenger, K13) and
+   4096 points (double-and-add, K14), each kernel held against its plain
+   version and the result against the oracle's `g1.msm`, and the facade's
+   `multi_exp` routing at 15 and 16 points;
+10. prints one JSON line of the kernels held, then, last, the result
    line `{"ok": true, "device": {...}}`.
 
 Every phase is fatal: any failure raises and the script exits non-zero
@@ -85,6 +94,11 @@ BLS_SEED_BASE = 1000
 BLS_RNG_SEED = 0
 BLS_TIMED = 5
 BLS_FIELD_N = 1024
+# slice 4: config #3 (bench_bls.py's one 512-member sync-committee
+# statement, seed base 2000) and the MSM probe sizes
+SYNC_COMMITTEE = 512
+SYNC_SEED_BASE = 2000
+MSM_SIZES = (16, 512, 4096)
 # a CIOS Montgomery product over 12 32-bit words is 2 x 144 32x32->64
 # multiply-adds, each at least two 32-bit integer instructions (the low
 # and the high half); the carries and the final subtraction are not
@@ -94,8 +108,11 @@ OPS_PER_MONT = 2 * 144 * 2
 # a round is 14 (three funnel-shift rotations and one three-input logic op
 # for each of the two Sigmas, one logic op each for Ch and Maj, four adds);
 # a schedule word is 10; the padding block's schedule is constant and
-# folded away; 8 adds end each compression.
-OPS_PER_MESSAGE = (64 * 14 + 48 * 10 + 8) + (64 * 14 + 8)
+# folded away; 8 adds end each compression.  A compression with its
+# schedule is OPS_PER_COMPRESSION (hash_to_g2's xmd is 9 OPS_PER_MESSAGE
+# a message: `h2c_work`).
+OPS_PER_COMPRESSION = 64 * 14 + 48 * 10 + 8
+OPS_PER_MESSAGE = OPS_PER_COMPRESSION + (64 * 14 + 8)
 
 
 def smi(query: str) -> str:
@@ -208,6 +225,42 @@ def profile_device_ms(fn, reps: int):
             per[name] = per.get(name, 0.0) + e.time_range.elapsed_us()
     return {k: v / reps / 1e3 for k, v in
             sorted(per.items(), key=lambda kv: -kv[1])}
+
+
+def try_profile(label: str, fn, reps: int):
+    """`profile_device_ms(fn, reps)`, or None where the profiler itself
+    fails (no CUPTI), printed under `label`.  A failure of `fn`, or of
+    the kernels it launches, is raised."""
+    import torch
+
+    failed = []
+
+    def call():
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except BaseException as exc:
+            failed.append(exc)
+            raise
+
+    try:
+        return profile_device_ms(call, reps)
+    except Exception as exc:
+        if failed:
+            raise failed[0]
+        print(f"{label}: not measured ({type(exc).__name__}: {exc})")
+        return None
+
+
+def profiler_sees(name: str, fn) -> None:
+    """Print what torch.profiler records on the device for one call of
+    `fn`."""
+    label = f"torch.profiler, one {name} call"
+    per = try_profile(label, fn, 1)
+    if per is not None:
+        print(f"{label}: " + (json.dumps({k: round(v, 6) for k, v in
+                                         per.items()}) if per
+                              else "no device activity recorded"))
 
 
 def forest_messages(idx, capacity: int) -> int:
@@ -506,9 +559,8 @@ def incremental_path(inp, params):
           f"peak_mem_bytes={peak} forest_build_ms={build_ms:.4f}")
     print("incremental stages (device ms, CUDA events; roots: host ms): "
           + json.dumps({k: round(v, 6) for k, v in parts.items()}))
-    per = {}
-    try:
-        per = profile_device_ms(step, 3)
+    per = try_profile("incremental step device ms by kernel", step, 3) or {}
+    if per:
         busy = sum(per.values())
         print("incremental step device ms per step by kernel "
               "(torch.profiler): " + json.dumps(
@@ -517,9 +569,6 @@ def incremental_path(inp, params):
               f"(share of the median step: "
               f"{busy / statistics.median(walls):.4f}); K2 per step ms="
               f"{per.get('sha256_64B_kernel', 0.0):.6f}")
-    except Exception as exc:   # a measurement only: report and go on
-        print(f"incremental step device ms by kernel: not measured "
-              f"({type(exc).__name__}: {exc})")
 
     # -- proofs from the balances forest ----------------------------------
     indices = inp.proof_idx.tolist()
@@ -698,14 +747,14 @@ def bls_path(dev, record, int32_ops_per_s):
           f"aggregates (bench_bls config #2, seed base {BLS_SEED_BASE}), "
           f"built in {time.perf_counter() - t0:.3f} s")
 
-    # -- the main path: one batch through K8 -> K9 -> K10 -----------------
+    # -- the host-hash route: one batch through K8 -> K9 -> K10 -----------
     torch.cuda.synchronize()
     _build.reset_launches()
     trace = {}
     ok = B.batch_verify(tasks, rng=random.Random(BLS_RNG_SEED), device=dev,
-                        trace=trace)
+                        device_h2c=False, trace=trace)
     torch.cuda.synchronize()
-    counts = read_launches("bls batch")
+    counts = read_launches("bls batch (host hashing)")
     for name in ("rlc_scalar_mul", "rlc_miller_product", "final_exp_is_one"):
         if counts.get(name, 0) != 1:
             raise AssertionError(f"the BLS batch launched {name} "
@@ -717,6 +766,37 @@ def bls_path(dev, record, int32_ops_per_s):
     if tuple(pk_x.shape) != (BLS_TASKS, 33) or not bool(mask.all()):
         raise AssertionError(f"bls batch shape {tuple(pk_x.shape)}")
     h_ok = torch.ones_like(mask)
+
+    # -- the device-hash route (slice 4, the default): K11 -> K8 -> K9 -> K10
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    h2c_trace = {}
+    ok = B.batch_verify(tasks, rng=random.Random(BLS_RNG_SEED), device=dev,
+                        trace=h2c_trace)
+    torch.cuda.synchronize()
+    h2c_counts = read_launches("bls batch (device hashing)")
+    for name in ("hash_to_g2", "rlc_scalar_mul", "rlc_miller_product",
+                 "final_exp_is_one"):
+        if h2c_counts.get(name, 0) != 1:
+            raise AssertionError(f"the device-hashed BLS batch launched "
+                                 f"{name} {h2c_counts.get(name, 0)} times")
+    if ok is not True:
+        raise AssertionError("the valid device-hashed batch was rejected")
+    words = h2c_trace["inputs"][4]
+    if tuple(words.shape) != (BLS_TASKS, 8):
+        raise AssertionError(f"message words {tuple(words.shape)}")
+    # all 128 device hashes equal the oracle's (the host-hash arrays)
+    err11 = max(require_equal("hash_to_g2 x vs the oracle",
+                              h2c_trace["h_x"], h_x),
+                require_equal("hash_to_g2 y vs the oracle",
+                              h2c_trace["h_y"], h_y),
+                require_equal("hash_to_g2 ok", h2c_trace["h_ok"], h_ok))
+    for part in ("miller", "final_exp", "ok"):
+        require_equal(f"device-hashed batch {part}", h2c_trace[part],
+                      trace[part])
+    print(f"bls device hashing: all {BLS_TASKS} K11 hashes equal the port "
+          f"oracle's hash_to_g2; the batch's Miller product, final "
+          f"exponentiation and verdict equal the host-hash route's")
 
     # -- each kernel's output against its plain stage on the card ---------
     plain_ms = {}
@@ -769,46 +849,57 @@ def bls_path(dev, record, int32_ops_per_s):
     print(f"bls DeferredBatch: {len(batch.tasks)} recorded statements "
           f"settled True in one batch")
 
-    # -- rejections ------------------------------------------------------
+    # -- rejections, through both routes ---------------------------------
     wrong = list(tasks)
     pk, msg, _ = wrong[7]
     wrong[7] = (pk, msg, curve.g2.mul(tasks[7][2], 2))
-    if B.batch_verify(wrong, rng=random.Random(BLS_RNG_SEED + 1),
-                      device=dev) is not False:
-        raise AssertionError("a batch with a wrong signature was accepted")
     one_sided = [tasks[0], (tasks[1][0], tasks[1][1], curve.g2.infinity())]
     oracle = all(cs._pairing_check(cs.fast_aggregate_pairs(t))
                  for t in one_sided)
-    got = B.batch_verify(one_sided, rng=random.Random(BLS_RNG_SEED),
-                         device=dev)
-    if got is not oracle:
-        raise AssertionError(f"one-sided infinity: {got} against the host "
-                             f"oracle's {oracle}")
-    print(f"bls rejections: a wrong signature at slot 7 rejected; "
-          f"one-sided infinity {got}, as the host oracle")
+    if oracle is not False:
+        raise AssertionError("one-sided infinity: the oracle accepted")
+    for h2c in (False, True):
+        if B.batch_verify(wrong, rng=random.Random(BLS_RNG_SEED + 1),
+                          device=dev, device_h2c=h2c) is not False:
+            raise AssertionError(f"a batch with a wrong signature was "
+                                 f"accepted (device_h2c={h2c})")
+        _build.reset_launches()
+        got = B.batch_verify(one_sided, rng=random.Random(BLS_RNG_SEED),
+                             device=dev, device_h2c=h2c)
+        if got is not oracle or not _build.launches["precomp_miller_product"]:
+            raise AssertionError(f"one-sided infinity: {got} against the "
+                                 f"host oracle's {oracle}, or not through "
+                                 f"pairing_check_device")
+    print("bls rejections, host and device hashing: a wrong signature at "
+          "slot 7 rejected; one-sided infinity rejected through "
+          "pairing_check_device (K12 -> K10), as the host oracle")
 
-    # -- timings -----------------------------------------------------------
-    def run():
+    # -- timings: both routes, in turns ------------------------------------
+    def run(h2c):
         return B.batch_verify(tasks, rng=random.Random(BLS_RNG_SEED),
-                              device=dev)
+                              device=dev, device_h2c=h2c)
 
-    run()
+    run(True)
+    run(False)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    walls, preps = [], []
+    walls = {True: [], False: []}
+    preps = {True: [], False: []}
     for _ in range(BLS_TIMED):
-        # host prep alone, then the whole entry point, in turns
-        t0 = time.perf_counter()
-        B._prepare_rlc_inputs(tasks, random.Random(BLS_RNG_SEED))
-        preps.append((time.perf_counter() - t0) * 1e3)
-        t0 = time.perf_counter()
-        if run() is not True:
-            raise AssertionError("the timed batch was rejected")
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
+        for h2c in (True, False):
+            # host prep alone, then the whole entry point
+            t0 = time.perf_counter()
+            B._prepare_rlc_inputs(tasks, random.Random(BLS_RNG_SEED), h2c)
+            preps[h2c].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            if run(h2c) is not True:
+                raise AssertionError("the timed batch was rejected")
+            torch.cuda.synchronize()
+            walls[h2c].append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated(dev) - base
     dev_ms = {
+        "hash_to_g2": device_ms(lambda: K.hash_to_g2_kernel(words), 5),
         "rlc_scalar_mul": device_ms(lambda: K.rlc_scalar_mul_kernel(
             pk_x, pk_y, sig_x, sig_y, r_bits, mask), 5),
         "rlc_miller_product": device_ms(lambda: K.rlc_miller_product_kernel(
@@ -817,22 +908,54 @@ def bls_path(dev, record, int32_ops_per_s):
         "final_exp_is_one": device_ms(
             lambda: K.final_exp_is_one_kernel(trace["miller"]), 5),
     }
-    device_total = sum(dev_ms.values())
-    wall = statistics.median(walls)
-    prep = statistics.median(preps)
-    print(f"bls batch: B={BLS_TASKS} median_ms={wall:.4f} "
-          f"min_ms={min(walls):.4f} max_ms={max(walls):.4f} "
-          f"host_prep_median_ms={prep:.4f} (hash-to-G2, parsing, packing; "
-          f"min {min(preps):.4f} max {max(preps):.4f}) "
-          f"device_ms={device_total:.6f} (CUDA events: "
-          + ", ".join(f"{k} {v:.6f}" for k, v in dev_ms.items())
-          + f") device_share={device_total / wall:.4f} "
-          f"batch_peak_mem_bytes={peak} "
-          f"launches_per_batch={sum(counts.values())}")
-    print(f"bls verifies per second: {BLS_TASKS / wall * 1e3:.3f} "
-          f"(batch wall), {BLS_TASKS / device_total * 1e3:.3f} (device "
-          f"time); plain batch on the card "
-          f"{sum(plain_ms.values()):.3f} ms")
+    for h2c, label in ((True, "device hashing"), (False, "host hashing")):
+        ks = [k for k in dev_ms if h2c or k != "hash_to_g2"]
+        device_total = sum(dev_ms[k] for k in ks)
+        wall = statistics.median(walls[h2c])
+        prep = statistics.median(preps[h2c])
+        print(f"bls batch ({label}): B={BLS_TASKS} median_ms={wall:.4f} "
+              f"min_ms={min(walls[h2c]):.4f} max_ms={max(walls[h2c]):.4f} "
+              f"host_prep_median_ms={prep:.4f} (min "
+              f"{min(preps[h2c]):.4f} max {max(preps[h2c]):.4f}) "
+              f"device_ms={device_total:.6f} (CUDA events: "
+              + ", ".join(f"{k} {dev_ms[k]:.6f}" for k in ks)
+              + f") device_share={device_total / wall:.4f} "
+              f"launches_per_batch={len(ks)}")
+        print(f"bls verifies per second ({label}): "
+              f"{BLS_TASKS / wall * 1e3:.3f} (batch wall), "
+              f"{BLS_TASKS / device_total * 1e3:.3f} (device time)")
+    print(f"bls batches' peak device memory: {peak} bytes; plain K8-K10 "
+          f"stages on the card {sum(plain_ms.values()):.3f} ms")
+
+    # K11 against its plain version on the card, at B = 128
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p11 = B.hash_to_g2_affine(words, plain=True)
+    torch.cuda.synchronize()
+    plain_ms["hash_to_g2"] = (time.perf_counter() - t0) * 1e3
+    err11 = max(err11, *(_canon_equal(f"hash_to_g2[{i}]",
+                                      (h2c_trace["h_x"], h2c_trace["h_y"],
+                                       h2c_trace["h_ok"])[i], p11[i])
+                         for i in range(3)))
+    print(f"bls K11 equals its plain version on the card at B={BLS_TASKS} "
+          f"(plain {plain_ms['hash_to_g2']:.3f} ms)")
+    profiler_sees("hash_to_g2", lambda: K.hash_to_g2_kernel(words))
+    msgs = [t[1] for t in tasks]
+    products, sha_ops = h2c_work(msgs)
+    record("hash_to_g2", "consensus_specs_tpu_torch/csrc/bls_h2c.cu",
+           "consensus_specs_tpu/ops/bls_batch/h2c_jax.py:295", err11,
+           dev_ms["hash_to_g2"], plain_ms["hash_to_g2"],
+           (products * OPS_PER_MONT + sha_ops) / int32_ops_per_s * 1e3,
+           "operations", montgomery_products=products,
+           sha256_instructions=sha_ops,
+           shape=f"B={BLS_TASKS} 32-byte messages, {2 * BLS_TASKS} field "
+           "elements mapped", replaces_also=[
+               "consensus_specs_tpu/ops/bls_batch/h2c_jax.py:126",
+               "consensus_specs_tpu/ops/bls_batch/h2c_jax.py:183",
+               "consensus_specs_tpu/ops/bls_batch/h2c_jax.py:198",
+               "consensus_specs_tpu/ops/bls_batch/h2c_jax.py:261",
+               "consensus_specs_tpu/ops/bls_batch/curve_jax.py:168",
+               "consensus_specs_tpu/ops/bls_batch/__init__.py:328"])
 
     products = bls_products(r_bits.cpu().numpy(), BLS_TASKS)
     sources = {"rlc_scalar_mul": "consensus_specs_tpu/ops/bls_batch/"
@@ -849,7 +972,378 @@ def bls_path(dev, record, int32_ops_per_s):
                "operations", montgomery_products=products[name],
                shape=f"B={BLS_TASKS} statements, {BLS_TASKS + 1} pairing "
                "lanes")
+    return counts, h2c_counts, facade_counts
+
+
+# --- slice 4: device hashing, the precomputed-line check, the G1 MSM ---------
+
+def _inv_products() -> int:
+    """Montgomery products of one Fermat inversion as the kernels run it:
+    a square per bit of p - 2's 384-bit word span, a product per set bit."""
+    from consensus_specs_tpu_torch.ops.bls.fields import Q
+
+    return 384 + bin(Q - 2).count("1")
+
+
+def h2c_work(msgs):
+    """(Montgomery products, SHA-256 instructions) that hash_to_g2 needs
+    for these messages, replaying K11's branches on the host (which
+    x-candidate of the SVDW map is tried, which square-root candidates).
+    expand_message_xmd once per message: b0's first block is the zero
+    pad, whose compression from the IV is a constant; its second block
+    holds the message (a compression with its schedule) and its third
+    is template only (a constant schedule, folded); each of the 8 b_i
+    is one block with its schedule and one template block, so 9
+    OPS_PER_MESSAGE.  Then 3 products per 512-bit draw, the map's fixed
+    part, 5 per g(x) and each square-root candidate's exponentiations
+    and inversion, sgn0 twice; the cofactor clearing (the u0 + u1
+    addition, then H2 MSB first from the point itself: 506 doublings,
+    246 additions) and the affine conversion.  Fq2: a product 3, a
+    square 2."""
+    from consensus_specs_tpu_torch.ops.bls.curve import H2
+    from consensus_specs_tpu_torch.ops.bls.fields import Q
+    from consensus_specs_tpu_torch.ops.bls.hash_to_curve import (
+        DST_G2, _SVDW_G2, hash_to_field_fq2)
+
+    inv = _inv_products()
+    pow14 = 384 + bin((Q + 1) // 4).count("1")
+    fp2_inv = 2 + inv + 2
+    e14 = (Q + 1) // 4
+
+    def is_root(r0, r1, x, y):
+        return ((r0 * r0 - r1 * r1) % Q, 2 * r0 * r1 % Q) == (x, y)
+
+    def sqrt_cost(a):
+        """(products, is_square) of the kernel's fp2_sqrt on a."""
+        x, y = a.c0 % Q, a.c1 % Q
+        if y == 0:
+            r = pow(x, e14, Q)
+            if is_root(r, 0, x, y):
+                return pow14 + 2, True
+            return 2 * (pow14 + 2), is_root(0, pow(-x % Q, e14, Q), x, y)
+        n = pow((x * x + y * y) % Q, e14, Q)
+        cost = 2 + pow14
+        for t in ((x + n) % Q, (x - n) % Q):
+            c = pow(t * pow(2, -1, Q) % Q, e14, Q)
+            w = y * pow(2 * c, -1, Q) % Q if c else 0
+            cost += 1 + pow14 + 1 + inv + 1 + 2
+            if is_root(c, w, x, y):
+                return cost, True
+        return cost, False
+
+    sv = _SVDW_G2
+    products = sha = 0
+    for m in msgs:
+        sha += 9 * OPS_PER_MESSAGE
+        for u in hash_to_field_fq2(m, 2, DST_G2):
+            products += 2 * 3 + 27 + fp2_inv + 4
+            tv1 = u.square() * sv.c1
+            tv2, tv1 = tv1 + sv.F.from_int(1), sv.F.from_int(1) - tv1
+            tv3 = tv1 * tv2
+            tv3 = tv3 if tv3.is_zero() else tv3.inv()
+            tv4 = u * tv1 * (tv3 * sv.c3)
+            t = (tv2.square() * tv3).square()
+            for x in (sv.c2 - tv4, sv.c2 + tv4, t * sv.c4 + sv.Z):
+                cost, square = sqrt_cost(sv.g(x))
+                products += 5 + cost
+                if square:
+                    break
+        products += (43 + (H2.bit_length() - 1) * 16
+                     + (bin(H2).count("1") - 1) * 43)
+        products += fp2_inv + 2 + 9
+    return products, sha
+
+
+def precomp_products(n_live: int) -> int:
+    """K12's Montgomery products for n_live live lanes: per Miller step a
+    line per live lane (2 Fq2-by-Fp and 2 Fq2 products, 10), the product
+    of the live lines (54 each), the fold (54) and on doubling steps the
+    square (36)."""
+    from consensus_specs_tpu_torch.ops.bls.fields import BLS_X
+
+    x_bits = abs(BLS_X).bit_length() - 1
+    x_adds = bin(abs(BLS_X)).count("1") - 1
+    per_step = n_live * 10 + (n_live - 1) * 54 + 54
+    return (x_bits + x_adds) * per_step + x_bits * 36
+
+
+def pippenger_products(digits, c: int) -> int:
+    """K13's Montgomery products for these digits (live lanes only): G1
+    doubling 7 and addition 16, an addition with an empty bucket or an
+    infinite running sum free, as the kernel's early returns make it."""
+    add, dbl = 16, 7
+    total = 0
+    res_inf = True
+    for w in range(digits.shape[1]):
+        col = digits[:, w]
+        occ = np.bincount(col[col > 0], minlength=1 << c)
+        total += add * int(np.maximum(occ[1:] - 1, 0).sum())
+        running = acc = False               # non-infinite yet?
+        for k in range((1 << c) - 1, 0, -1):
+            if occ[k]:
+                total += add if running else 0
+                running = True
+            if running:
+                total += add if acc else 0
+                acc = True
+        if not res_inf:
+            total += c * dbl
+        if acc:
+            total += 0 if res_inf else add
+            res_inf = False
+    return total
+
+
+def double_add_products(bits) -> int:
+    """K14's Montgomery products for these live lanes' 255 scalar bits:
+    255 doublings each, an addition per set bit after the first, then the
+    tree's additions of the live lanes."""
+    return (bits.shape[0] * bits.shape[1] * 7
+            + (int(bits.sum()) - bits.shape[0]) * 16
+            + (bits.shape[0] - 1) * 16)
+
+
+def sync_task():
+    """BASELINE config #3, `bench_bls.py:67 _build_tasks(1, 512,
+    seed_base=2000)`'s recipe (copied in `bls_tasks`), and the wire
+    bytes of its 512 member keys and their aggregate signature."""
+    from consensus_specs_tpu_torch.ops.bls import ciphersuite as cs
+
+    (task,), _ = bls_tasks(1, SYNC_COMMITTEE, SYNC_SEED_BASE)
+    sks = [SYNC_SEED_BASE + i + 1 for i in range(SYNC_COMMITTEE)]
+    pks = [cs.SkToPk(sk) for sk in sks]
+    return task, pks, cs.Sign(sum(sks), task[1])
+
+
+def pairing_check_path(dev, record, int32_ops_per_s):
+    """Config #3: `pairing_check_device` on the 512-key statement's two
+    pairs at bucket 8 through K12 -> K10 (the main path), K12 held
+    against its plain version, cold and warm times; then the facade's
+    eager `FastAggregateVerify` on the 512 wire keys, `Verify` and
+    `AggregateVerify`, accept and reject, on the card."""
+    import torch
+
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch.ops import bls as BLS
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls import ciphersuite as cs
+    from consensus_specs_tpu_torch.ops.bls.curve import g1, g2
+    from consensus_specs_tpu_torch.ops.bls.hash_to_curve import (DST_G2,
+                                                                 hash_to_g2)
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+
+    t0 = time.perf_counter()
+    (pk, msg, sig), pks, agg_sig = sync_task()
+    pairs = [(pk, hash_to_g2(msg, DST_G2)), (g1.neg(cs.G1_GEN), sig)]
+    print(f"bls config #3 inputs: one {SYNC_COMMITTEE}-key statement (seed "
+          f"base {SYNC_SEED_BASE}) and its {SYNC_COMMITTEE} wire keys, built "
+          f"in {time.perf_counter() - t0:.3f} s")
+
+    # -- the main path: the cold call (the line precompute) ---------------
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    ok = B.pairing_check_device(pairs, device=dev)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_launches("pairing check")
+    for name in ("precomp_miller_product", "final_exp_is_one"):
+        if counts.get(name, 0) != 1:
+            raise AssertionError(f"pairing_check_device launched {name} "
+                                 f"{counts.get(name, 0)} times, not once")
+    if ok is not True:
+        raise AssertionError("config #3's valid statement was rejected")
+    bad = [pairs[0], (g1.neg(cs.G1_GEN), g2.mul(sig, 2))]
+    if B.pairing_check_device(bad, device=dev) is not False:
+        raise AssertionError("config #3 with a wrong signature was accepted")
+
+    # -- K12 against its plain version; K10 gives the verdict --------------
+    xp, yp, lines, mask = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                           for a in B.pairing_check_inputs(pairs))
+    f12 = K.precomp_miller_product_kernel(xp, yp, lines, mask)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p12 = B.precomp_miller_product(xp, yp, lines, mask, plain=True)
+    torch.cuda.synchronize()
+    plain12 = (time.perf_counter() - t0) * 1e3
+    err12 = _canon_equal("precomp_miller_product", f12, p12)
+    if not bool(B.final_exp_is_one(f12)[1].item()):
+        raise AssertionError("K10 rejected K12's product")
+
+    warm = []
+    for _ in range(BLS_TIMED):
+        t0 = time.perf_counter()
+        if B.pairing_check_device(pairs, device=dev) is not True:
+            raise AssertionError("the timed pairing check was rejected")
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    k12_ms = device_ms(lambda: K.precomp_miller_product_kernel(
+        xp, yp, lines, mask), 5)
+    k10_ms = device_ms(lambda: K.final_exp_is_one_kernel(f12), 5)
+    print(f"bls pairing check (config #3, bucket {xp.shape[0]}, 2 live "
+          f"pairs): cold_ms={cold_ms:.4f} (line precompute and first call) "
+          f"warm median_ms={statistics.median(warm):.4f} "
+          f"min_ms={min(warm):.4f} max_ms={max(warm):.4f} device_ms="
+          f"{k12_ms + k10_ms:.6f} (CUDA events: precomp_miller_product "
+          f"{k12_ms:.6f}, final_exp_is_one {k10_ms:.6f}); K12 equals its "
+          f"plain version (plain {plain12:.3f} ms); a wrong signature "
+          f"rejected")
+    profiler_sees("precomp_miller_product",
+                  lambda: K.precomp_miller_product_kernel(xp, yp, lines, mask))
+    products = precomp_products(2)
+    record("precomp_miller_product",
+           "consensus_specs_tpu_torch/csrc/bls_pairing.cu",
+           "consensus_specs_tpu/ops/bls_batch/pairing_jax.py:234", err12,
+           k12_ms, plain12, products * OPS_PER_MONT / int32_ops_per_s * 1e3,
+           "operations", montgomery_products=products,
+           shape=f"bucket {xp.shape[0]}, 2 live pairs (config #3)",
+           replaces_also=[
+               "consensus_specs_tpu/ops/bls_batch/__init__.py:221"])
+
+    # -- the facade's eager calls on the card -------------------------------
+    if BLS.backend_name() != "torch":
+        raise AssertionError("the BLS facade does not default to the card")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    if BLS.FastAggregateVerify(pks, msg, agg_sig) is not True:
+        raise AssertionError("FastAggregateVerify rejected config #3")
+    fav_ms = (time.perf_counter() - t0) * 1e3
+    facade_counts = read_launches("facade FastAggregateVerify")
+    if facade_counts.get("precomp_miller_product", 0) != 1:
+        raise AssertionError("FastAggregateVerify did not run on the card")
+    if BLS.FastAggregateVerify(pks, b"\x01" * 32, agg_sig) is not False:
+        raise AssertionError("FastAggregateVerify accepted a wrong message")
+    one_sig = cs.Sign(SYNC_SEED_BASE + 1, msg)
+    two = [msg, b"\x02" * 32]
+    two_sig = cs.Aggregate([one_sig, cs.Sign(SYNC_SEED_BASE + 2, two[1])])
+    checks = [(BLS.Verify(pks[0], msg, one_sig), True),
+              (BLS.Verify(pks[1], msg, one_sig), False),
+              (BLS.AggregateVerify(pks[:2], two, two_sig), True),
+              (BLS.AggregateVerify(pks[:2], two[::-1], two_sig), False)]
+    if [got for got, _ in checks] != [want for _, want in checks]:
+        raise AssertionError(f"facade eager calls: {checks}")
+    print(f"bls facade on the card: FastAggregateVerify over "
+          f"{SYNC_COMMITTEE} wire keys accepted (wall_ms={fav_ms:.4f}, "
+          f"parsing and aggregation on the host) and a wrong message "
+          f"rejected; Verify and AggregateVerify accept and reject")
     return counts, facade_counts
+
+
+def msm_path(dev, record, int32_ops_per_s):
+    """`g1_multi_exp_device` on bench_bls's probe (`bench_bls.py:143`:
+    points (3i + 2) G1, scalars 5^(i+1) mod r) at 16 (B = 32, c = 6,
+    Pippenger: the facade's threshold), 512 (B = 512, c = 8, the top
+    Pippenger rung) and 4096 points (double-and-add: Deneb's
+    blob_to_kzg_commitment width).  Each call is a main path; each
+    kernel is held against its plain version, and the results against
+    the oracle's `g1.msm`; then `multi_exp`'s routing at 15 and 16."""
+    import torch
+
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch.ops import bls as BLS
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls import ciphersuite as cs
+    from consensus_specs_tpu_torch.ops.bls.curve import R, g1
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+
+    t0 = time.perf_counter()
+    pts = [g1.mul(cs.G1_GEN, 3 * i + 2) for i in range(max(MSM_SIZES))]
+    ks = [pow(5, i + 1, R) for i in range(max(MSM_SIZES))]
+    print(f"msm inputs: {len(pts)} points built in "
+          f"{time.perf_counter() - t0:.3f} s")
+    path_counts, errs, times = {}, {}, {}
+    n_thr, n_pip, n_da = MSM_SIZES
+    for n in MSM_SIZES:
+        p, k = pts[:n], ks[:n]
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        got = B.g1_multi_exp_device(p, k, device=dev)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = read_launches(f"msm n={n}")
+        algo, c, arrays = B.msm_inputs(p, k)
+        name = "msm_pippenger" if algo == "pippenger" else "msm_double_add"
+        if counts.get(name, 0) != 1:
+            raise AssertionError(f"msm n={n} launched {name} "
+                                 f"{counts.get(name, 0)} times")
+        path_counts[f"msm_{n}"] = counts
+        t = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+        if algo == "pippenger":
+            def kern(t=t, c=c):
+                return K.msm_pippenger_kernel(*t, c)
+
+            def plain(t=t, c=c):
+                return B.msm_pippenger(*t, c, plain=True)
+        else:
+            def kern(t=t):
+                return K.msm_double_add_kernel(*t)
+
+            def plain(t=t):
+                return B.msm_double_add(*t, plain=True)
+        out = kern()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(_canon_equal(f"{name} n={n}[{i}]", out[i], want[i])
+                  for i in range(3))
+        t0 = time.perf_counter()
+        oracle = g1.msm(p, k)
+        oracle_s = time.perf_counter() - t0
+        if not g1.eq_points(got, oracle):
+            raise AssertionError(f"msm n={n} differs from the oracle's")
+        kms = device_ms(kern, 5)
+        if n != n_thr:
+            profiler_sees(name, kern)
+        if algo == "pippenger":
+            live = arrays[2][:n]
+            products = pippenger_products(live, c)
+        else:
+            products = double_add_products(arrays[2][:n])
+        print(f"msm n={n}: {algo} B={arrays[0].shape[0]}"
+              + (f" c={c}" if c else "") + f" call_ms={wall:.4f} "
+              f"kernel_ms={kms:.6f} plain_ms={plain_ms:.3f} "
+              f"products={products}; equals its plain version and the "
+              f"oracle's g1.msm (host oracle {oracle_s * 1e3:.1f} ms)")
+        errs.setdefault(name, 0)
+        errs[name] = max(errs[name], err)
+        times[n] = (name, kms, plain_ms, products, arrays[0].shape[0], c)
+
+    for name, n, src in (("msm_pippenger", n_pip, "consensus_specs_tpu/ops/"
+                          "bls_batch/curve_jax.py:188"),
+                         ("msm_double_add", n_da, "consensus_specs_tpu/ops/"
+                          "bls_batch/__init__.py:347")):
+        _, kms, plain_ms, products, b, c = times[n]
+        extra = {}
+        if name == "msm_pippenger":
+            _, k16, p16, prod16, b16, c16 = times[n_thr]
+            extra = dict(threshold_ms=k16, threshold_plain_ms=p16,
+                         threshold_bound_ms=prod16 * OPS_PER_MONT
+                         / int32_ops_per_s * 1e3,
+                         threshold_shape=f"n={n_thr}, B={b16}, c={c16}",
+                         replaces_also=["consensus_specs_tpu/ops/bls_batch/"
+                                        "__init__.py:367"])
+        record(name, "consensus_specs_tpu_torch/csrc/bls_msm.cu", src,
+               errs[name], kms, plain_ms,
+               products * OPS_PER_MONT / int32_ops_per_s * 1e3, "operations",
+               montgomery_products=products,
+               shape=f"n={n} points, B={b}" + (f", c={c}" if c else ""),
+               **extra)
+
+    # -- the facade's multi_exp routes G1 batches of 16 or more -------------
+    for n, routed in ((15, 0), (16, 1)):
+        _build.reset_launches()
+        got = BLS.multi_exp([(1, q) for q in pts[:n]], ks[:n])
+        if _build.launches["msm_pippenger"] != routed:
+            raise AssertionError(f"multi_exp at {n} points: "
+                                 f"{_build.launches['msm_pippenger']} launches")
+        if not g1.eq_points(got[1], g1.msm(pts[:n], ks[:n])):
+            raise AssertionError(f"multi_exp at {n} points: wrong point")
+    print("msm facade: multi_exp keeps 15 points on the host and sends 16 "
+          "to the card")
+    return path_counts
 
 
 def main() -> int:
@@ -1062,13 +1556,20 @@ def main() -> int:
             kernels[name]["step_device_ms"] = sum(step_device.get(k, 0.0)
                                                   for k in names)
 
-    # -- slice 3: the RLC batch verify -------------------------------------
+    # -- slices 3 and 4: the RLC batch verify, both routes -----------------
     field_counts = check_bls_field_kernels(dev, record, int32_ops_per_s)
-    bls_counts, facade_counts = bls_path(dev, record, int32_ops_per_s)
+    bls_counts, h2c_counts, facade_counts = bls_path(dev, record,
+                                                     int32_ops_per_s)
+    # -- slice 4: config #3's pairing check and the facade; the MSM -------
+    check_counts, fav_counts = pairing_check_path(dev, record,
+                                                  int32_ops_per_s)
+    msm_counts = msm_path(dev, record, int32_ops_per_s)
 
     paths = {"full_step": full_counts, "incremental_step": incr_counts,
-             "proofs": proof_counts, "bls_batch": bls_counts,
-             "bls_deferred_batch": facade_counts}
+             "proofs": proof_counts, "bls_batch_h2c": h2c_counts,
+             "bls_batch": bls_counts, "bls_deferred_batch": facade_counts,
+             "pairing_check": check_counts,
+             "facade_fast_aggregate_verify": fav_counts, **msm_counts}
     for k in kernels.values():
         by = {p: c[k["name"]] for p, c in paths.items() if c.get(k["name"])}
         if k["name"] == "bls_field_ops":
@@ -1080,8 +1581,10 @@ def main() -> int:
         if not by:
             raise AssertionError(f"no path launched kernel {k['name']}")
         k["launches_by_path"] = by
-        k["launches"] = (by.get("incremental_step") or by.get("full_step")
-                         or by.get("bls_batch") or by["proofs"])
+        main_path = ("incremental_step", "full_step", "bls_batch_h2c",
+                     "pairing_check", f"msm_{MSM_SIZES[1]}",
+                     f"msm_{MSM_SIZES[2]}", "proofs")
+        k["launches"] = next(by[p] for p in main_path if by.get(p))
 
     for k in kernels.values():
         print(f"kernel {k['name']}: launches={k['launches']} "

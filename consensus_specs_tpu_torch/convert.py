@@ -101,19 +101,21 @@ def incremental_step_inputs(n: int, dirty_frac: float = 0.01, seed: int = 7):
     return pk_root, cred, dirty
 
 
-def rlc_inputs(tasks, rng, device="cuda"):
+def rlc_inputs(tasks, rng, device="cuda", device_h2c=False):
     """The RLC batch's inputs, the arrays of the JAX package's
-    `_prepare_rlc_inputs` (host hashing, padded to `_bucket(n_live)`) as
-    the port's tensors on `device`: (pk_x, pk_y, sig_x, sig_y, h_x, h_y,
-    r_bits, mask), limbs int32, mask bool.  The coefficients come from
-    `rng` in JAX's order ([1] + [getrandbits(128) | 1 ...]), so one
+    `_prepare_rlc_inputs` (padded to `_bucket(n_live)`) as the port's
+    tensors on `device`: (pk_x, pk_y, sig_x, sig_y, h_x, h_y, r_bits,
+    mask), limbs int32, mask bool; under `device_h2c`, one (B, 8) int32
+    message-word tensor in place of (h_x, h_y).  The coefficients come
+    from `rng` in JAX's order ([1] + [getrandbits(128) | 1 ...]), so one
     seeded `random.Random` gives both packages the same inputs.  Returns
-    (tensors, n_live), or (None, verdict-or-tasks) where no batch is
-    needed (`ops.bls_batch._prepare_rlc_inputs`)."""
+    (tensors, n_live), or (None, verdict) where no batch is needed
+    (`ops.bls_batch._prepare_rlc_inputs`, which then checks each task
+    with `pairing_check_device` on `device`)."""
     from .ops.bls_batch import _prepare_rlc_inputs, _to
 
     dev = resolve_device(device)
-    arrays, n = _prepare_rlc_inputs(tasks, rng)
+    arrays, n = _prepare_rlc_inputs(tasks, rng, device_h2c, dev)
     if arrays is None:
         return None, n
     return tuple(_to(a, dev) for a in arrays), n

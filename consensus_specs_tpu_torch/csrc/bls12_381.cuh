@@ -29,6 +29,7 @@
 // counted in Montgomery products.
 #pragma once
 
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #define BLS_NW 12     // 32-bit words of an Fp
@@ -637,4 +638,30 @@ __device__ __forceinline__ bool pt_to_affine(F& x, F& y, const Jac<F>& p) {
   f_mul(t, zi2, zi);
   f_mul(y, p.y, t);
   return f_is_zero(p.z);
+}
+
+// --- host: the constant block ----------------------------------------------
+
+// Write `BlsConstants` (the words of `kernels.constant_words()`) into this
+// library's `__constant__` block, and raise the per-thread stack limit to
+// the largest frame among its `kernels` (an Fp12 is 576 bytes and the
+// frames are kilobytes), so that no launch is refused.  Each library has
+// its own block: every one must be written before its first launch.
+static int bls_write_constants(const uint32_t* words, int n_words,
+                               const void* const* kernels, int n_kernels) {
+  if (n_words * 4 != (int)sizeof(BlsConstants)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaMemcpyToSymbol(BLS, words, sizeof(BlsConstants));
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  size_t need = 0;
+  for (int i = 0; i < n_kernels; ++i) {
+    err = cudaFuncGetAttributes(&attr, kernels[i]);
+    if (err != cudaSuccess) return err;
+    if (attr.localSizeBytes > need) need = attr.localSizeBytes;
+  }
+  size_t cur = 0;
+  err = cudaDeviceGetLimit(&cur, cudaLimitStackSize);
+  if (err != cudaSuccess) return err;
+  if (need > cur) err = cudaDeviceSetLimit(cudaLimitStackSize, need);
+  return err;
 }

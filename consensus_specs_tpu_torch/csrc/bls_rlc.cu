@@ -32,13 +32,16 @@
 // one warp per SM).  K9 is one block: one thread per lane computes its
 // line each Miller step into a global scratch row, the block multiplies
 // the lines in a tree (128 Fq12 products in 8 levels per step), and
-// thread 0 folds the product into the accumulator.  K10 is one thread.
+// thread 0 folds the product into the accumulator (the line placement,
+// the tree and the fold are `bls_miller.cuh`'s, shared with K12).  K10
+// is one thread.
 // Every launcher returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bls12_381.cuh"
+#include "bls_miller.cuh"
 
 namespace {
 
@@ -169,12 +172,7 @@ __device__ __noinline__ void dbl_step(Fp12& line, Jac<Fp2>& T, const Fp& xp,
   fp2_add(c0, t, c0);
   fp2_dbl(t, YY);
   fp2_sub(c0, c0, t);                       // 3 X^3 - 2 Y^2
-  fp12_one(line);
-  line.c0.c0 = c0;
-  fp2_mul_fp(cx, cx, xp);
-  fp2_mul(fp12_slot(line, BLS.jx), cx, BLS.sx);
-  fp2_mul_fp(cy, cy, yp);
-  fp2_mul(fp12_slot(line, BLS.jy), cy, BLS.sy);
+  line_at(line, c0, cx, cy, xp, yp);
   pt_double(T, T);
 }
 
@@ -193,32 +191,13 @@ __device__ __noinline__ void add_step(Fp12& line, Jac<Fp2>& T, const Fp2& xq,
   fp2_mul(c0, I, xq);
   fp2_mul(t, ZH, yq);
   fp2_sub(c0, c0, t);                       // I xq - Z H yq
-  fp12_one(line);
-  line.c0.c0 = c0;
   fp2_neg(I, I);
-  fp2_mul_fp(I, I, xp);
-  fp2_mul(fp12_slot(line, BLS.jx), I, BLS.sx);
-  fp2_mul_fp(ZH, ZH, yp);
-  fp2_mul(fp12_slot(line, BLS.jy), ZH, BLS.sy);
+  line_at(line, c0, I, ZH, xp, yp);
   Jac<Fp2> q;
   q.x = xq;
   q.y = yq;
   fp2_one(q.z);
   pt_add(T, T, q);
-}
-
-// L[0] <- L[0] * ... * L[n-1], in place, by the whole block
-__device__ void tree_product(Fp12* L, int n) {
-  while (n > 1) {
-    int h = (n + 1) / 2;
-    for (int i = threadIdx.x; i < n - h; i += blockDim.x) {
-      Fp12 a = L[i], b = L[i + h];
-      fp12_mul(a, a, b);
-      L[i] = a;
-    }
-    __syncthreads();
-    n = h;
-  }
 }
 
 __global__ void __launch_bounds__(256)
@@ -286,10 +265,8 @@ rlc_miller_product_kernel(const int32_t* __restrict__ apx,
 
   Fp12 f;
   fp12_one(f);
-  const uint64_t x_abs = ((uint64_t)BLS.x_abs_hi << 32) | BLS.x_abs_lo;
-  int top = 63;
-  while (!((x_abs >> top) & 1)) --top;
-  for (int bit = top - 1; bit >= 0; --bit) {
+  const uint64_t x_abs = bls_x_abs();
+  for (int bit = bls_x_top() - 1; bit >= 0; --bit) {
     const bool add = (x_abs >> bit) & 1;
     for (int pass = 0; pass < (add ? 2 : 1); ++pass) {
       for (int i = tid; i < n; i += nt) {
@@ -302,14 +279,7 @@ rlc_miller_product_kernel(const int32_t* __restrict__ apx,
         if (!s.live[i]) fp12_one(line);
         s.L[i] = line;
       }
-      if (tid == 0 && pass == 0) fp12_sqr(f, f);
-      __syncthreads();
-      tree_product(s.L, n);
-      if (tid == 0) {
-        Fp12 l = s.L[0];
-        fp12_mul(f, f, l);
-      }
-      __syncthreads();
+      miller_fold(f, s.L, n, pass == 0);
     }
   }
   if (tid == 0) {
@@ -321,7 +291,7 @@ rlc_miller_product_kernel(const int32_t* __restrict__ apx,
 // --- K10 -------------------------------------------------------------------
 
 __device__ __noinline__ void fp12_pow_x_abs(Fp12& r, const Fp12& g) {
-  const uint64_t x_abs = ((uint64_t)BLS.x_abs_hi << 32) | BLS.x_abs_lo;
+  const uint64_t x_abs = bls_x_abs();
   Fp12 acc;
   fp12_one(acc);
   for (int bit = 63; bit >= 0; --bit) {
@@ -380,27 +350,11 @@ final_exp_is_one_kernel(const int32_t* __restrict__ f_in,
 extern "C" {
 
 int bls_set_constants(const uint32_t* words, int n_words) {
-  if (n_words * 4 != (int)sizeof(BlsConstants)) return cudaErrorInvalidValue;
-  cudaError_t err = cudaMemcpyToSymbol(BLS, words, sizeof(BlsConstants));
-  if (err != cudaSuccess) return err;
-  // the kernels' frames are large (an Fp12 is 576 bytes): raise the
-  // per-thread stack limit to the largest so no launch is refused
-  cudaFuncAttributes attr;
-  size_t need = 0;
   const void* kernels[] = {(const void*)bls_field_ops_kernel,
                            (const void*)rlc_scalar_mul_kernel,
                            (const void*)rlc_miller_product_kernel,
                            (const void*)final_exp_is_one_kernel};
-  for (const void* k : kernels) {
-    err = cudaFuncGetAttributes(&attr, k);
-    if (err != cudaSuccess) return err;
-    if (attr.localSizeBytes > need) need = attr.localSizeBytes;
-  }
-  size_t cur = 0;
-  err = cudaDeviceGetLimit(&cur, cudaLimitStackSize);
-  if (err != cudaSuccess) return err;
-  if (need > cur) err = cudaDeviceSetLimit(cudaLimitStackSize, need);
-  return err;
+  return bls_write_constants(words, n_words, kernels, 4);
 }
 
 int bls_field_ops_launch(int op, int k, const int32_t* a, const int32_t* b,

@@ -1,18 +1,19 @@
 """BLS facade of the port (counterpart of `consensus_specs_tpu.ops.bls`).
 
 A module-global backend, the `bls_active` kill-switch returning stub
-values, the scheme functions, and the deferred batch that the block path
-records its FastAggregateVerify statements into.
+values, the scheme functions, the deferred batch that the block path
+records its FastAggregateVerify statements into, and the point API.
 
 Backends:
-- "torch" (the default): the card.  `DeferredBatch.verify` settles
-           every recorded statement in one RLC batch through
-           `ops.bls_batch.batch_verify` (K8 -> K9 -> K10).  The eager
-           `Verify`, `AggregateVerify`, `FastAggregateVerify` and
-           `pairing_check` need the precomputed-line pairing check, which
-           is not ported yet: under "torch" they raise
-           `NotImplementedError` (slice 4) and do not fall back to the
-           host oracle.
+- "torch" (the default): the card.  `Verify`, `AggregateVerify`,
+           `FastAggregateVerify` and `pairing_check` parse on the host and
+           check their pairings with `ops.bls_batch.pairing_check_device`
+           (K12 -> K10); `DeferredBatch.verify` settles every recorded
+           statement in one RLC batch through `ops.bls_batch.batch_verify`
+           (K11 -> K8 -> K9 -> K10); `multi_exp` sends G1 batches of
+           `_MSM_DEVICE_MIN` or more points to
+           `ops.bls_batch.g1_multi_exp_device` (K13 or K14), all on
+           `_device`, CUDA.
 - "py":    the port's own pure-Python oracle (`fields`, `curve`,
            `pairing`, `hash_to_curve`, `ciphersuite` here), chosen only
            with `use_backend("py")`.
@@ -24,18 +25,17 @@ subgroup checks, and the same product-of-pairings predicate.
 from __future__ import annotations
 
 from . import ciphersuite as _py
+from . import curve as _curve
+from . import hash_to_curve as _h2c
 
 bls_active = True
 _backend_name = "torch"
+_device = "cuda"   # where the "torch" routes run
 
 STUB_SIGNATURE = b"\x11" * 96
 STUB_PUBKEY = b"\x22" * 48
 G1_POINT_AT_INFINITY = _py.G1_POINT_AT_INFINITY
 G2_POINT_AT_INFINITY = _py.G2_POINT_AT_INFINITY
-
-_SLICE_4 = ("the eager pairing check on the card is not ported yet (it "
-            "comes with slice 4 of the port); record the statement in a "
-            "deferred batch, or use the 'py' backend")
 
 
 def use_backend(name: str) -> None:
@@ -48,10 +48,57 @@ def backend_name() -> str:
     return _backend_name
 
 
-def _eager(fn, *args):
-    if _backend_name == "torch":
-        raise NotImplementedError(f"{fn.__name__}: {_SLICE_4}")
-    return fn(*args)
+# --- the eager checks on the device (JAX `ops/bls/__init__.py:38-81`) --------
+
+
+def _device_pairing_check(pairs) -> bool:
+    from ..bls_batch import pairing_check_device
+
+    return pairing_check_device(pairs, device=_device)
+
+
+def _verify_torch(pubkey, message, signature):
+    try:
+        pk = _py._pk_to_point(pubkey)
+        sig = _py._sig_to_point(signature)
+    except ValueError:
+        return False
+    h = _h2c.hash_to_g2(message, _h2c.DST_G2)
+    return _device_pairing_check(
+        [(pk, h), (_curve.g1.neg(_curve.G1_GEN), sig)])
+
+
+def _aggregate_verify_torch(pubkeys, messages, signature):
+    if len(pubkeys) == 0 or len(pubkeys) != len(messages):
+        return False
+    try:
+        sig = _py._sig_to_point(signature)
+        pks = [_py._pk_to_point(pk) for pk in pubkeys]
+    except ValueError:
+        return False
+    pairs = [(pk, _h2c.hash_to_g2(msg, _h2c.DST_G2))
+             for pk, msg in zip(pks, messages)]
+    pairs.append((_curve.g1.neg(_curve.G1_GEN), sig))
+    return _device_pairing_check(pairs)
+
+
+def _fast_aggregate_verify_torch(pubkeys, message, signature):
+    if len(pubkeys) == 0:
+        return False
+    try:
+        sig = _py._sig_to_point(signature)
+        agg = _curve.g1.infinity()
+        for pk in pubkeys:
+            agg = _curve.g1.add(agg, _py._pk_to_point(pk))
+    except ValueError:
+        return False
+    h = _h2c.hash_to_g2(message, _h2c.DST_G2)
+    return _device_pairing_check(
+        [(agg, h), (_curve.g1.neg(_curve.G1_GEN), sig)])
+
+
+def _eager(torch_fn, py_fn, *args):
+    return (torch_fn if _backend_name == "torch" else py_fn)(*args)
 
 
 # --- scheme functions, honoring the kill-switch -----------------------------
@@ -66,7 +113,7 @@ def Sign(privkey, message):
 def Verify(pubkey, message, signature):
     if not bls_active:
         return True
-    return _eager(_py.Verify, bytes(pubkey), bytes(message),
+    return _eager(_verify_torch, _py.Verify, bytes(pubkey), bytes(message),
                   bytes(signature))
 
 
@@ -79,7 +126,8 @@ def Aggregate(signatures):
 def AggregateVerify(pubkeys, messages, signature):
     if not bls_active:
         return True
-    return _eager(_py.AggregateVerify, [bytes(p) for p in pubkeys],
+    return _eager(_aggregate_verify_torch, _py.AggregateVerify,
+                  [bytes(p) for p in pubkeys],
                   [bytes(m) for m in messages], bytes(signature))
 
 
@@ -89,7 +137,8 @@ def FastAggregateVerify(pubkeys, message, signature):
     if _deferred is not None:
         return _deferred.record([bytes(p) for p in pubkeys],
                                 bytes(message), bytes(signature))
-    return _eager(_py.FastAggregateVerify, [bytes(p) for p in pubkeys],
+    return _eager(_fast_aggregate_verify_torch, _py.FastAggregateVerify,
+                  [bytes(p) for p in pubkeys],
                   bytes(message), bytes(signature))
 
 
@@ -114,7 +163,13 @@ def KeyValidate(pubkey):
 def pairing_check(values):
     if not bls_active:
         return True
-    return _eager(_py.pairing_check, values)
+    if _backend_name == "torch":
+        pairs = []
+        for (tag1, p), (tag2, q) in values:
+            assert tag1 == 1 and tag2 == 2
+            pairs.append((p, q))
+        return _device_pairing_check(pairs)
+    return _py.pairing_check(values)
 
 
 # --- deferred batch verification --------------------------------------------
@@ -252,3 +307,37 @@ class deferred_batch_verification:
     def __exit__(self, *exc) -> None:
         global _deferred
         _deferred = None
+
+
+# --- point API (always active; KZG needs real math even with sigs off) ------
+
+add = _py.add
+multiply = _py.multiply
+neg = _py.neg
+eq = _py.eq
+Z1 = _py.Z1
+Z2 = _py.Z2
+G1 = _py.G1
+G2 = _py.G2
+G1_to_bytes48 = _py.G1_to_bytes48
+G2_to_bytes96 = _py.G2_to_bytes96
+bytes48_to_G1 = _py.bytes48_to_G1
+bytes96_to_G2 = _py.bytes96_to_G2
+
+# G1 batches below this size stay on the host (JAX `ops/bls/__init__.py:301`)
+_MSM_DEVICE_MIN = 16
+
+
+def multi_exp(points, integers):
+    """MSM of (group_tag, point) pairs; under "torch", G1 batches of
+    `_MSM_DEVICE_MIN` or more points run on the device
+    (`ops.bls_batch.g1_multi_exp_device`), the rest on the host oracle."""
+    is_g1 = bool(points) and points[0][0] == 1
+    if (_backend_name == "torch" and len(points) >= _MSM_DEVICE_MIN
+            and is_g1):
+        from ..bls_batch import g1_multi_exp_device
+
+        return (1, g1_multi_exp_device([p for _, p in points],
+                                       [int(i) for i in integers],
+                                       device=_device))
+    return _py.multi_exp(points, integers)

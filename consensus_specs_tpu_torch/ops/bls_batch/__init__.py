@@ -1,7 +1,7 @@
-"""Batched BLS verification on the card (counterpart of
-`consensus_specs_tpu.ops.bls_batch`): the random-linear-combination (RLC)
-batch verify of FastAggregateVerify statements, with the messages hashed
-to G2 on the host.
+"""Batched BLS on the card (counterpart of `consensus_specs_tpu.ops.bls_batch`):
+the random-linear-combination (RLC) batch verify of FastAggregateVerify
+statements, the precomputed-line pairing check and the G1 multiscalar
+multiplication.
 
 `batch_verify(tasks, rng, device="cuda")` checks B statements
 e(PK_i, H(m_i)) == e(G1, S_i) at once: with r_0 = 1 and the other r_i
@@ -9,23 +9,35 @@ random odd 128-bit values, it accepts iff
     prod_i e(r_i PK_i, H_i) · e(-G1, sum_i r_i S_i) == 1,
 B + 1 pairings through one shared Fq12 Miller accumulator and ONE final
 exponentiation (JAX's docstring gives the 2^-127 soundness argument).
-The host parses, hashes and packs (`_prepare_rlc_inputs`); the device
-runs three stages, each a kernel on a CUDA tensor and its plain PyTorch
+The host parses and packs (`_prepare_rlc_inputs`); with 32-byte messages
+it leaves the hashing to the device too, as JAX does by default.
+
+`pairing_check_device(pairs)` is the oracle's `pairing_check` on the
+device: the G2 arguments are host points, so their Miller lines are
+precomputed on the host once per point and the device evaluates them.
+`g1_multi_exp_device(points, scalars)` is a G1 MSM: Pippenger up to 512
+lanes, double-and-add above.
+
+Each device stage is a kernel on a CUDA tensor and its plain PyTorch
 version on a CPU tensor (or with `plain=True`):
 
-    rlc_scalar_mul      K8   r_i PK_i to affine, r_i S_i (pad lanes inf)
-    rlc_miller_product  K9   the G2 sum to affine, the Miller product
-    final_exp_is_one    K10  the final exponentiation and the verdict
+    hash_to_g2_affine       K11  messages -> H(m) affine with its flag
+    rlc_scalar_mul          K8   r_i PK_i to affine, r_i S_i (pad lanes inf)
+    rlc_miller_product      K9   the G2 sum to affine, the Miller product
+    precomp_miller_product  K12  the Miller product over host lines
+    final_exp_is_one        K10  the final exponentiation and the verdict
+    msm_pippenger           K13  the bucketed G1 MSM
+    msm_double_add          K14  the double-and-add G1 MSM
 
-The plain stages compose exactly as JAX's `_rlc_pairing_core` (:280), so
-on the CPU every intermediate equals JAX's limb for limb; the kernels
-return canonical limbs, equal to `fq_canon` of the plain ones.  No stage
-falls back to another route when a kernel fails to build or launch.
+The plain stages compose exactly as JAX's programs (`_rlc_kernel_h2c`,
+`_rlc_kernel`, `_pairing_check_precomp_fn`, `_msm_pippenger_kernel`,
+`_msm_kernel`), so on the CPU every intermediate equals JAX's limb for
+limb; the kernels return canonical limbs, equal to `fq_canon` of the
+plain ones.  No stage falls back to another route when a kernel fails
+to build or launch.
 
-Device hash-to-curve (`_rlc_kernel_h2c`, `device_h2c=True`), the sharded
-batch, the MSM and the precomputed-line `pairing_check_device` are not
-ported yet: they come with the next slices.  Nothing here is timed,
-faulted or telemetered.
+The sharded batch and MSM and the `*_async` entry points are not ported
+yet.  Nothing here is timed, faulted or telemetered.
 """
 
 from __future__ import annotations
@@ -40,14 +52,19 @@ from ..bls import curve as _pycurve
 from ..bls.hash_to_curve import DST_G2, hash_to_g2
 from . import curve as C
 from . import fq as _fq
+from . import h2c
 from . import kernels as K
 from . import pairing as pj
 from . import tower as tw
 
 RLC_SCALAR_BITS = 128     # soundness 2^-127 per forged batch (odd draws)
+SCALAR_BITS = 255         # BLS12-381 subgroup order is 255 bits
 
 # batch-shape ladder (JAX `ops/bls_batch/__init__.py:91`)
 _BUCKET_STEPS = (8, 32, 128, 512)
+
+# Pippenger up to this many lanes, double-and-add above (JAX `:405`)
+_MSM_PIPPENGER_MAX = 512
 
 
 def _bucket(n: int) -> int:
@@ -58,6 +75,16 @@ def _bucket(n: int) -> int:
         if b <= step:
             return step
     return b
+
+
+def _to(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def _pad_rows(a: np.ndarray, pad: int, axis: int = 0) -> np.ndarray:
+    """Pad `a` along `axis` by repeating its first row `pad` times."""
+    first = np.take(a, [0], axis=axis)
+    return np.concatenate([a, np.repeat(first, pad, axis)], axis=axis)
 
 
 # --- device helpers (plain) ---------------------------------------------------
@@ -84,7 +111,22 @@ def _use_kernel(t: torch.Tensor, plain: bool) -> bool:
     return t.device.type == "cuda" and not plain
 
 
-# --- the three stages ---------------------------------------------------------
+# --- the stages ---------------------------------------------------------------
+
+
+def hash_to_g2_affine_plain(msg_words):
+    h_x, h_y, h_inf = g2_to_affine_dev(h2c.hash_to_g2_dev(msg_words))
+    return h_x, h_y, ~h_inf
+
+
+def hash_to_g2_affine(msg_words, plain=False):
+    """(h_x, h_y, h_ok): the B messages' hashes to G2 in affine form and
+    ~infinity, from (B, 8) int32 message words (JAX `_rlc_kernel_h2c`'s
+    `hash_to_g2_dev` then `g2_to_affine_dev`).  K11 on a CUDA tensor, the
+    plain version otherwise."""
+    if _use_kernel(msg_words, plain):
+        return K.hash_to_g2_kernel(msg_words)
+    return hash_to_g2_affine_plain(msg_words)
 
 
 def rlc_scalar_mul_plain(pk_x, pk_y, sig_x, sig_y, r_bits, mask):
@@ -134,6 +176,15 @@ def rlc_miller_product(apx, apy, a_inf, r_sig, h_x, h_y, h_ok, mask,
                                     mask)
 
 
+def precomp_miller_product(xp, yp, lines, mask, plain=False):
+    """The shared-accumulator Miller product over host-precomputed lines
+    (JAX `pairing_jax.miller_product_precomp`): one Fq12.  K12 on a CUDA
+    tensor, the plain version otherwise."""
+    if _use_kernel(xp, plain):
+        return K.precomp_miller_product_kernel(xp, yp, lines, mask)
+    return pj.miller_product_precomp(xp, yp, lines, mask)
+
+
 def final_exp_is_one_plain(f):
     fe = pj.final_exponentiate(f)
     return fe, tw.fq12_is_one(fe)[None]
@@ -149,7 +200,7 @@ def final_exp_is_one(f, plain=False):
 
 def _rlc_pairing_core(pk_x, pk_y, sig_x, sig_y, h_x, h_y, h_ok, r_bits, mask,
                       plain=False, trace=None):
-    """The three stages in order (JAX `_rlc_pairing_core`); returns the
+    """K8 -> K9 -> K10 in order (JAX `_rlc_pairing_core`); returns the
     (1,) bool verdict.  With `trace` (a dict), every intermediate is
     stored in it."""
     apx, apy, a_inf, r_sig = rlc_scalar_mul(pk_x, pk_y, sig_x, sig_y,
@@ -163,19 +214,60 @@ def _rlc_pairing_core(pk_x, pk_y, sig_x, sig_y, h_x, h_y, h_ok, r_bits, mask,
     return ok
 
 
+# --- pairing check --------------------------------------------------------------
+
+
+def pairing_check_inputs(pairs):
+    """The host side of `pairing_check_device` (JAX `:230-274`): drop the
+    pairs with a side at infinity (the oracle's skip), pad the live ones
+    to `_bucket(n)` by repeating lane 0, precompute the G2 lines.
+    Returns numpy (xp, yp, lines, mask), or None when no pair is live."""
+    live = [(p, q) for p, q in pairs
+            if not _pycurve.g1.is_inf(p) and not _pycurve.g2.is_inf(q)]
+    if not live:
+        return None
+    B = _bucket(len(live))
+    xp, yp = C.g1_affine_to_limbs([p for p, _ in live])
+    # (n_bits, B_live, 6, 2, 33): per-bit line coefficients per pair
+    lines = np.stack([pj.precompute_g2_lines(q) for _, q in live], axis=1)
+    pad = B - len(live)
+    if pad:
+        xp, yp = _pad_rows(xp, pad), _pad_rows(yp, pad)
+        lines = _pad_rows(lines, pad, axis=1)
+    return xp, yp, lines, np.arange(B) < len(live)
+
+
+def pairing_check_device(pairs, device="cuda") -> bool:
+    """pairs: [(g1_jacobian, g2_jacobian)] oracle points.  The product of
+    the pairings == 1, through K12 -> K10 on a CUDA `device`, and on any
+    other through the plain `pairing.multi_pairing_check_precomp`; pairs
+    with a side at infinity contribute the identity."""
+    dev = resolve_device(device)
+    arrays = pairing_check_inputs(pairs)
+    if arrays is None:
+        return True
+    xp, yp, lines, mask = (_to(a, dev) for a in arrays)
+    if not _use_kernel(xp, False):
+        return bool(pj.multi_pairing_check_precomp(xp, yp, lines,
+                                                   mask).item())
+    f = precomp_miller_product(xp, yp, lines, mask)
+    return bool(final_exp_is_one(f)[1].item())
+
+
 # --- host prep ----------------------------------------------------------------
 
 
-def _prepare_rlc_inputs(tasks, rand):
-    """Host-side prep (JAX `_prepare_rlc_inputs`, host hashing): drop
-    trivial pairs, hash the messages, build limb arrays padded to the
-    bucket ladder shape `_bucket(n_live)`.
+def _prepare_rlc_inputs(tasks, rand, device_h2c=False, device="cuda"):
+    """Host-side prep (JAX `_prepare_rlc_inputs`): drop trivial pairs,
+    hash the messages (host) or pack them as words (device hashing),
+    build limb arrays padded to the bucket ladder shape `_bucket(n_live)`.
 
     Returns (arrays, n_live): arrays (pk_x, pk_y, sig_x, sig_y, h_x, h_y,
-    r_bits, mask) as numpy, or None when no batch is needed: then n_live
-    is True (nothing to check) or, when some task has infinity on exactly
-    one side (which the affine batch cannot carry), the list of live
-    tasks, each to be checked on its own (`_task_check`)."""
+    r_bits, mask) as numpy, with (h_x, h_y) replaced by one (B, 8) int32
+    message-word matrix under `device_h2c`.  Or (None, verdict) where no
+    batch is needed: nothing to check, or some task with infinity on
+    exactly one side (which the affine batch cannot carry): then each
+    task is checked on its own by `pairing_check_device` on `device`."""
     live = []
     for pk, msg, sig in tasks:
         if _pycurve.g1.is_inf(pk) and _pycurve.g2.is_inf(sig):
@@ -185,11 +277,19 @@ def _prepare_rlc_inputs(tasks, rand):
         return None, True
     if any(_pycurve.g1.is_inf(pk) or _pycurve.g2.is_inf(sig)
            for pk, _, sig in live):
-        return None, live
+        neg_g1 = _pycurve.g1.neg(_pycurve.G1_GEN)
+        return None, all(
+            pairing_check_device([(pk, hash_to_g2(msg, DST_G2)),
+                                  (neg_g1, sig)], device=device)
+            for pk, msg, sig in live)
 
     B = _bucket(len(live))
     pk_x, pk_y = C.g1_affine_to_limbs([t[0] for t in live])
-    h_x, h_y = C.g2_affine_to_limbs([hash_to_g2(t[1], DST_G2) for t in live])
+    if device_h2c:
+        h_arrays = (h2c.msgs_to_words([t[1] for t in live]).view(np.int32),)
+    else:
+        h_arrays = C.g2_affine_to_limbs(
+            [hash_to_g2(t[1], DST_G2) for t in live])
     sig_x, sig_y = C.g2_affine_to_limbs([t[2] for t in live])
     scalars = [1] + [rand.getrandbits(RLC_SCALAR_BITS) | 1
                      for _ in range(len(live) - 1)]
@@ -197,86 +297,159 @@ def _prepare_rlc_inputs(tasks, rand):
 
     pad = B - len(live)
     if pad:
-        def _p(a):
-            return np.concatenate([a, np.repeat(a[:1], pad, 0)])
-        pk_x, pk_y, h_x, h_y = _p(pk_x), _p(pk_y), _p(h_x), _p(h_y)
-        sig_x, sig_y = _p(sig_x), _p(sig_y)
+        pk_x, pk_y = _pad_rows(pk_x, pad), _pad_rows(pk_y, pad)
+        h_arrays = tuple(_pad_rows(a, pad) for a in h_arrays)
+        sig_x, sig_y = _pad_rows(sig_x, pad), _pad_rows(sig_y, pad)
         r_bits = np.concatenate(
             [r_bits, np.zeros((pad, RLC_SCALAR_BITS), np.int32)])
     mask = np.arange(B) < len(live)
-    return (pk_x, pk_y, sig_x, sig_y, h_x, h_y, r_bits, mask), len(live)
+    return ((pk_x, pk_y, sig_x, sig_y) + h_arrays + (r_bits, mask),
+            len(live))
 
 
-def _task_inputs(task):
-    """One task as the inputs of the Miller stage at B = 1: lanes
-    (PK, H(m)) and (-G1, S), an infinite side's lane masked (PK's affine
-    form zero and its flag set; the signature enters as its own sum,
-    r = 1, and an infinite sum masks its lane)."""
-    pk, msg, sig = task
-    a_inf = np.array([_pycurve.g1.is_inf(pk)])
-    if a_inf[0]:
-        apx = apy = np.zeros((1, _fq.N_LIMBS), np.int32)
-    else:
-        apx, apy = C.g1_affine_to_limbs([pk])
-    h_x, h_y = C.g2_affine_to_limbs([hash_to_g2(msg, DST_G2)])
-    if _pycurve.g2.is_inf(sig):
-        one = tw.FQ2_ONE_L[None]
-        r_sig = (one, one, np.zeros_like(one))
-    else:
-        sx, sy = C.g2_affine_to_limbs([sig])
-        r_sig = (sx, sy, tw.FQ2_ONE_L[None])
-    return (apx, apy, a_inf, r_sig, h_x, h_y, np.ones(1, bool),
-            np.ones(1, bool))
+# --- the RLC batch ----------------------------------------------------------------
 
 
-def _to(a, dev):
-    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-
-def _task_check(task, dev) -> bool:
-    """e(PK, H(m)) · e(-G1, S) == 1 with an infinite side's pair dropped
-    (the oracle's `pairing_check` skip; JAX runs `pairing_check_device`
-    here), as a two-lane pairing check through the Miller stage and the
-    final exponentiation."""
-    apx, apy, a_inf, r_sig, h_x, h_y, h_ok, mask = _task_inputs(task)
-    f, _ = rlc_miller_product(
-        _to(apx, dev), _to(apy, dev), _to(a_inf, dev),
-        tuple(_to(c, dev) for c in r_sig), _to(h_x, dev), _to(h_y, dev),
-        _to(h_ok, dev), _to(mask, dev))
-    return bool(final_exp_is_one(f)[1].item())
-
-
-# --- the entry point ----------------------------------------------------------
-
-
-def batch_verify(tasks, rng=None, device="cuda", device_h2c=False,
+def batch_verify(tasks, rng=None, device="cuda", device_h2c=True,
                  trace=None) -> bool:
     """tasks: [(g1_pubkey_jacobian, message_bytes, g2_sig_jacobian)]
     (oracle points of `consensus_specs_tpu_torch.ops.bls`).
 
-    Verifies every FastAggregateVerify-style statement at once through
-    K8 -> K9 -> K10 on `device` (CUDA by default; `device="cpu"` runs
-    the plain versions).  `rng` draws the RLC coefficients
-    (`random.Random`-like; default a system source) in JAX's order, so
-    one seed gives both packages the same inputs.  With `trace` (a
-    dict), the batch's inputs and every stage's outputs are stored in
-    it."""
-    if device_h2c:
-        raise NotImplementedError(
-            "batch_verify: device hash-to-curve (device_h2c=True) is not "
-            "ported yet; it comes with slice 4 of the port")
+    Verifies every FastAggregateVerify-style statement at once on
+    `device` (CUDA by default; `device="cpu"` runs the plain versions):
+    K11 -> K8 -> K9 -> K10 with the messages hashed on the device, or
+    K8 -> K9 -> K10 with host hashing.  `device_h2c` (default True)
+    hashes on the device when every message is 32 bytes, the length
+    K11 is specialized to, and on the host otherwise, as JAX routes
+    them; `device_h2c=False` always hashes on the host.
+    `rng` draws the RLC coefficients (`random.Random`-like; default a
+    system source) in JAX's order, so one seed gives both packages the
+    same inputs.  With `trace` (a dict), the batch's inputs and every
+    stage's outputs are stored in it."""
     dev = resolve_device(device)
     if not tasks:
         return True
     rand = rng if rng is not None else secrets.SystemRandom()
-    arrays, n = _prepare_rlc_inputs(tasks, rand)
+    device_h2c = device_h2c and all(
+        len(bytes(m)) == h2c.MSG_BYTES for _, m, _ in tasks)
+    arrays, n = _prepare_rlc_inputs(tasks, rand, device_h2c, dev)
     if arrays is None:
-        return n is True or all(_task_check(t, dev) for t in n)
-    pk_x, pk_y, sig_x, sig_y, h_x, h_y, r_bits, mask = (
-        _to(a, dev) for a in arrays)
-    h_ok = torch.ones_like(mask)
+        return bool(n)
+    inputs = tuple(_to(a, dev) for a in arrays)
+    if device_h2c:
+        pk_x, pk_y, sig_x, sig_y, words, r_bits, mask = inputs
+        h_x, h_y, h_ok = hash_to_g2_affine(words)
+    else:
+        pk_x, pk_y, sig_x, sig_y, h_x, h_y, r_bits, mask = inputs
+        h_ok = torch.ones_like(mask)
     if trace is not None:
-        trace.update(inputs=(pk_x, pk_y, sig_x, sig_y, h_x, h_y, r_bits,
-                             mask))
+        trace.update(inputs=inputs, h_x=h_x, h_y=h_y, h_ok=h_ok)
     return bool(_rlc_pairing_core(pk_x, pk_y, sig_x, sig_y, h_x, h_y, h_ok,
                                   r_bits, mask, trace=trace).item())
+
+
+# --- G1 multiscalar multiplication ----------------------------------------------
+
+
+def _msm_window(n: int) -> int:
+    """Pippenger window size for an n-point batch (JAX `:388`)."""
+    if n < 32:
+        return 4
+    if n < 256:
+        return 6
+    if n < 2048:
+        return 8
+    return 10
+
+
+def _msm_algo(batch: int, algo=None) -> str:
+    """"pippenger" up to `_MSM_PIPPENGER_MAX` lanes, "double-add" above,
+    unless `algo` names one (JAX `:408`, there from an environment
+    variable)."""
+    if algo is None:
+        return "pippenger" if batch <= _MSM_PIPPENGER_MAX else "double-add"
+    assert algo in ("pippenger", "double-add"), algo
+    return algo
+
+
+def msm_pippenger_plain(x, y, digits, c: int):
+    one1 = _fq.const(_fq.ONE_MONT, x.device).expand(x.shape)
+    return C.pt_msm_pippenger(C.F1, (x, y, one1), digits, c)
+
+
+def msm_pippenger(x, y, digits, c: int, plain=False):
+    """sum_i k_i P_i as one Jacobian G1 point (X, Y, Z), each (33,), by
+    Pippenger's buckets (JAX `_msm_pippenger_kernel`); digits (B, W)
+    c-bit windows, most significant first.  K13 on a CUDA tensor, the
+    plain version otherwise."""
+    if _use_kernel(x, plain):
+        return K.msm_pippenger_kernel(x, y, digits, c)
+    return msm_pippenger_plain(x, y, digits, c)
+
+
+def msm_double_add_plain(x, y, bits, mask):
+    B = x.shape[0]
+    one1 = _fq.const(_fq.ONE_MONT, x.device).expand(x.shape)
+    muls = C.pt_scalar_mul(C.F1, (x, y, one1), bits)
+    muls = C.pt_select(C.F1, mask, muls, C.pt_infinity(C.F1, muls))
+    return C.pt_sum(C.F1, muls, B)
+
+
+def msm_double_add(x, y, bits, mask, plain=False):
+    """sum_i k_i P_i as one Jacobian G1 point by a 255-bit double-and-add
+    on every lane and a tree sum (JAX `_msm_kernel`); bits (B, 255)
+    MSB first, mask (B,).  K14 on a CUDA tensor, the plain version
+    otherwise."""
+    if _use_kernel(x, plain):
+        return K.msm_double_add_kernel(x, y, bits, mask)
+    return msm_double_add_plain(x, y, bits, mask)
+
+
+def msm_inputs(points, scalars, algo=None):
+    """The host side of `g1_multi_exp_device` (JAX `:757-816`): drop the
+    zero scalars and the points at infinity, pad to `_bucket(n)` by
+    repeating lane 0 with zero scalars.  Returns (algo, c, arrays):
+    numpy (x, y, digits) for "pippenger" (c its window), (x, y, bits,
+    mask) for "double-add" (c None); or None when no lane is live."""
+    assert len(points) == len(scalars) and len(points) > 0
+    live = []
+    for p, s in zip(points, scalars):
+        s = int(s) % _pycurve.R
+        if s == 0 or _pycurve.g1.is_inf(p):
+            continue
+        live.append((p, s))
+    if not live:
+        return None
+    B = _bucket(len(live))
+    algo = _msm_algo(B, algo)
+    x, y = C.g1_affine_to_limbs([p for p, _ in live])
+    pad = B - len(live)
+    ks = [s for _, s in live]
+    if algo == "pippenger":
+        c = _msm_window(B)
+        k = C.scalars_to_digits(ks, SCALAR_BITS, c)
+        extra = ()
+    else:
+        c = None
+        k = C.scalars_to_bits(ks, SCALAR_BITS)
+        extra = (np.arange(B) < len(live),)
+    if pad:
+        x, y = _pad_rows(x, pad), _pad_rows(y, pad)
+        k = np.concatenate([k, np.zeros((pad,) + k.shape[1:], np.int32)])
+    return algo, c, (x, y, k) + extra
+
+
+def g1_multi_exp_device(points, scalars, device="cuda", algo=None):
+    """G1 multiscalar multiplication on `device`: points oracle Jacobian
+    G1 points, scalars ints (reduced mod r).  Pippenger (K13) up to
+    `_MSM_PIPPENGER_MAX` lanes, double-and-add (K14) above, or the one
+    `algo` names; the plain versions on the CPU.  Returns an oracle
+    Jacobian point."""
+    dev = resolve_device(device)
+    prepared = msm_inputs(points, scalars, algo)
+    if prepared is None:
+        return _pycurve.g1.infinity()
+    algo, c, arrays = prepared
+    t = tuple(_to(a, dev) for a in arrays)
+    out = msm_pippenger(*t, c) if algo == "pippenger" else msm_double_add(*t)
+    return C.g1_limbs_to_oracle(out)

@@ -11,7 +11,8 @@ not change), which keeps the number of 33-step Montgomery loops down.
 `pt_add` computes the doubling arm only when some lane takes it.
 
 Points are (X, Y, Z) tuples of limb tensors; Z == 0 encodes infinity.
-The kernels K8 and K9 (`csrc/bls_rlc.cu`) run the same formulas.
+The kernels K8, K9 (`csrc/bls_rlc.cu`), K11 (`csrc/bls_h2c.cu`), K13
+and K14 (`csrc/bls_msm.cu`) run the same formulas.
 """
 
 from __future__ import annotations
@@ -140,6 +141,53 @@ def pt_scalar_mul(F: FieldOps, p, scalar_bits: torch.Tensor):
     return acc
 
 
+def pt_scalar_mul_const(F: FieldOps, p, bits_np):
+    """Double-and-add by ONE fixed host-known scalar (MSB-first bit
+    array) for the whole batch, the cofactor-clearing shape (JAX
+    `curve_jax.py:168`): the add runs only on set bits."""
+    acc = pt_infinity(F, p)
+    for bit in np.asarray(bits_np).tolist():
+        acc = pt_double(F, acc)
+        if bit:
+            acc = pt_add(F, acc, p)
+    return acc
+
+
+def pt_msm_pippenger(F: FieldOps, p, digits: torch.Tensor, c: int):
+    """Bucketed (Pippenger) multiscalar multiplication over the batch
+    (JAX `curve_jax.py:188`).  p: (x, y, one) with B leading rows;
+    digits: (B, W) int32 window digits, most significant window first
+    (`scalars_to_digits`).  The points scatter in order into their bucket
+    of every window at once, each window's 2^c buckets reduce by the
+    suffix sum (bucket 0 never read), and the windows combine MSB-first
+    with c doublings each.  Returns one Jacobian point."""
+    B, W = digits.shape
+    nb = 1 << c
+    elem = p[0].shape[1:]
+    dev = p[0].device
+    one = _fq.const(F.one, dev).expand((W, nb) + elem)
+    buckets = [one.clone(), one.clone(),
+               torch.zeros((W, nb) + elem, dtype=torch.int32, device=dev)]
+    widx = torch.arange(W, device=dev)
+    for i in range(B):
+        d = digits[i].long()
+        cur = tuple(b[widx, d] for b in buckets)
+        pt = tuple(co[i].expand((W,) + elem) for co in p)
+        for b, nc in zip(buckets, pt_add(F, cur, pt)):
+            b[widx, d] = nc
+    # suffix sum over k = nb-1 .. 1, W windows wide
+    running = acc = pt_infinity(F, tuple(b[:, 0] for b in buckets))
+    for k in range(nb - 1, 0, -1):
+        running = pt_add(F, running, tuple(b[:, k] for b in buckets))
+        acc = pt_add(F, acc, running)
+    res = pt_infinity(F, tuple(a[:1] for a in acc))
+    for w in range(W):
+        for _ in range(c):
+            res = pt_double(F, res)
+        res = pt_add(F, res, tuple(a[w:w + 1] for a in acc))
+    return tuple(co[0] for co in res)
+
+
 def pt_sum(F: FieldOps, p, n: int):
     """Sum a batch of n points (leading axis) with a log-depth add tree
     (JAX `curve_jax.py:252`): the first half plus the second, halving."""
@@ -167,6 +215,20 @@ def scalars_to_bits(scalars, nbits: int) -> np.ndarray:
         assert 0 <= s < (1 << nbits)
         for j in range(nbits):
             out[i, nbits - 1 - j] = (s >> j) & 1
+    return out
+
+
+def scalars_to_digits(scalars, nbits: int, c: int) -> np.ndarray:
+    """Python ints -> (B, ceil(nbits/c)) int32 c-bit window digits,
+    most-significant window first (Pippenger layout)."""
+    n_windows = -(-nbits // c)
+    out = np.zeros((len(scalars), n_windows), dtype=np.int32)
+    m = (1 << c) - 1
+    for i, s in enumerate(scalars):
+        s = int(s)
+        assert 0 <= s < (1 << nbits)
+        for w in range(n_windows):
+            out[i, n_windows - 1 - w] = (s >> (c * w)) & m
     return out
 
 

@@ -66,6 +66,7 @@ def from_mont(limbs) -> int:
 P_LIMBS = int_to_limbs(Q)
 TWO_P_LIMBS = int_to_limbs(2 * Q)
 ONE_MONT = to_mont(1)
+ONE_PLAIN = int_to_limbs(1)       # fq_mul(a, ONE_PLAIN): out of Montgomery form
 
 # p - 2 bits, MSB first (Fermat inversion exponent)
 _P_MINUS_2_BITS = np.array(

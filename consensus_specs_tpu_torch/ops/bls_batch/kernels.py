@@ -1,16 +1,19 @@
-"""Wrappers of the BLS kernels K7-K10 (`csrc/bls_rlc.cu`, device arithmetic
-in `csrc/bls12_381.cuh`).
+"""Wrappers of the BLS kernels K7-K14, one shared library per source:
+`csrc/bls_rlc.cu` (K7-K10), `bls_h2c.cu` (K11), `bls_pairing.cu` (K12)
+and `bls_msm.cu` (K13, K14), all over the device arithmetic of
+`csrc/bls12_381.cuh`.
 
 Each wrapper takes and returns the port's boundary format (JAX's
 (..., 33) int32 limbs, R = 2**396; outputs canonical), checks its inputs,
 launches on the current stream, raises on a refused launch and adds one to
 its launch count.  It never falls back to a plain version: the plain
 versions and the dispatch by device live beside them (`field_op`,
-`bls_batch.rlc_scalar_mul` and the stages after it).
+`bls_batch.rlc_scalar_mul` and the other stages).
 
 The kernels' constants are not typed into the source: `constant_words`
-derives them from the port's Python oracle and `_lib` writes them into
-the `__constant__` block once per device.
+(and, for K11, `h2c_constant_words`) derive them from the port's Python
+oracle, and `lib_for` writes them into each library's own `__constant__`
+block once per device.
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ from ... import _build
 from ..bls import curve as _pycurve
 from ..bls.fields import BLS_X, Q, _GAMMA
 from . import fq as _fq
+from . import h2c
 from . import tower as tw
-from .pairing import JX, JY, SX, SY
+from .pairing import JX, JY, SX, SY, X_BITS
 
 N_WORDS = 12            # 32-bit words of a kernel Fp
 R_KERNEL = 1 << 384     # the kernels' Montgomery R
@@ -67,39 +71,90 @@ def constant_words() -> np.ndarray:
     return out
 
 
+def h2c_constant_words() -> np.ndarray:
+    """The `H2cConstants` block of `bls_h2c.cu`, in its field order, as
+    uint32 words: the xmd block templates, (p + 1) / 4, the cofactor H2
+    and its bit length, 1/2, and the SVDW constants c1-c4, Z and the
+    twist's B (field elements in the kernels' Montgomery form)."""
+    h2 = _pycurve.H2
+    words = (h2c._B0_TPL.ravel().tolist()
+             + np.stack(h2c._BI_TPLS).ravel().tolist()
+             + _words((Q + 1) // 4)
+             + [(h2 >> (32 * i)) & 0xFFFFFFFF for i in range(16)]
+             + [h2.bit_length()] + _mont_words(pow(2, -1, Q)))
+    sv = h2c._SVDW_G2
+    for g in (sv.c1, sv.c2, sv.c3, sv.c4, sv.Z, _pycurve.B2):
+        words += _mont_words(g.c0) + _mont_words(g.c1)
+    out = np.array(words, dtype=np.uint32)
+    assert out.size == 489 and h2.bit_length() <= 512
+    return out
+
+
+_p, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# library -> {launcher: argtypes}; every launcher returns an int status
+_SIGNATURES = {
+    "bls_rlc": {
+        "bls_field_ops_launch": [_i32, _i32, _p, _p, _p, _i64, _p],
+        "rlc_scalar_mul_launch": [_p] * 6 + [_i32, _i32] + [_p] * 7,
+        "rlc_miller_product_launch": [_p] * 12 + [_i32] + [_p] * 4
+        + [_i32, _p],
+        "final_exp_is_one_launch": [_p, _p, _p, _p],
+    },
+    "bls_h2c": {
+        "h2c_set_constants": [_p, _i32],
+        "hash_to_g2_launch": [_p, _i32, _p, _p, _p, _p, _p],
+    },
+    "bls_pairing": {
+        "precomp_miller_product_launch": [_p] * 4 + [_i32, _p, _p, _i32, _p],
+    },
+    "bls_msm": {
+        "msm_pippenger_launch": [_p] * 3 + [_i32] * 3 + [_p] * 3,
+        "msm_double_add_launch": [_p] * 4 + [_i32] * 2 + [_p] * 3,
+    },
+}
+# scratch-size functions: name -> argument count (all int)
+_SCRATCH = {"rlc_miller_scratch_bytes": 1, "h2c_scratch_bytes": 1,
+            "precomp_miller_scratch_bytes": 1,
+            "msm_pippenger_scratch_bytes": 3,
+            "msm_double_add_scratch_bytes": 1}
+
+
 @functools.cache
-def _lib_loaded():
-    lib = _build.load("bls_rlc")
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.bls_set_constants.argtypes = [p, i32]
-    lib.bls_field_ops_launch.argtypes = [i32, i32, p, p, p, i64, p]
-    lib.rlc_scalar_mul_launch.argtypes = [p] * 6 + [i32, i32] + [p] * 7
-    lib.rlc_miller_scratch_bytes.argtypes = [i32]
-    lib.rlc_miller_scratch_bytes.restype = i64
-    lib.rlc_miller_product_launch.argtypes = ([p] * 12 + [i32] + [p] * 4
-                                              + [i32, p])
-    lib.final_exp_is_one_launch.argtypes = [p, p, p, p]
-    for f in ("bls_set_constants", "bls_field_ops_launch", "rlc_scalar_mul_launch",
-              "rlc_miller_product_launch", "final_exp_is_one_launch"):
-        getattr(lib, f).restype = i32
+def _lib_loaded(name: str):
+    lib = _build.load(name)
+    lib.bls_set_constants.argtypes = [_p, _i32]
+    lib.bls_set_constants.restype = _i32
+    for f, args in _SIGNATURES[name].items():
+        getattr(lib, f).argtypes = args
+        getattr(lib, f).restype = _i32
+    for f, n in _SCRATCH.items():
+        if hasattr(lib, f):
+            getattr(lib, f).argtypes = [_i32] * n
+            getattr(lib, f).restype = _i64
     return lib
 
 
 @functools.cache
-def _lib(device_index: int):
-    """The library, with its constants written on device `device_index`."""
-    lib = _lib_loaded()
-    words = constant_words()
+def _lib(name: str, device_index: int):
+    """Library `name`, with its constants written on device
+    `device_index`."""
+    lib = _lib_loaded(name)
     with torch.cuda.device(device_index):
+        words = constant_words()
         _build.check(lib.bls_set_constants(words.ctypes.data, words.size),
-                     "bls_set_constants")
+                     f"{name} bls_set_constants")
+        if name == "bls_h2c":
+            words = h2c_constant_words()
+            _build.check(lib.h2c_set_constants(words.ctypes.data,
+                                               words.size),
+                         "h2c_set_constants")
     return lib
 
 
-def lib_for(device) -> ctypes.CDLL:
-    """The library with its constants on `device` (a CUDA device)."""
+def lib_for(device, name: str = "bls_rlc") -> ctypes.CDLL:
+    """Library `name` with its constants on `device` (a CUDA device)."""
     dev = torch.device(device)
-    return _lib(dev.index if dev.index is not None
+    return _lib(name, dev.index if dev.index is not None
                 else torch.cuda.current_device())
 
 
@@ -271,3 +326,113 @@ def final_exp_is_one_kernel(f):
         "final_exp_is_one")
     _build.launches["final_exp_is_one"] += 1
     return fe, ok
+
+
+# --- K11 -----------------------------------------------------------------
+
+
+def hash_to_g2_kernel(msg_words):
+    """K11: (h_x, h_y, h_ok) for B 32-byte messages given as (B, 8) int32
+    big-endian word bit patterns: H(m) in affine form, (B, 2, 33)
+    canonical, and ~infinity (B,)."""
+    B = msg_words.shape[0]
+    _limbs("msg_words", msg_words, (B, 8))
+    dev = msg_words.device
+    lib = lib_for(dev, "bls_h2c")
+    scratch = torch.empty(max(1, int(lib.h2c_scratch_bytes(B))),
+                          dtype=torch.uint8, device=dev)
+    h_x = torch.empty((B, 2, 33), dtype=torch.int32, device=dev)
+    h_y = torch.empty_like(h_x)
+    h_ok = torch.empty(B, dtype=torch.bool, device=dev)
+    _build.require_cuda("hash_to_g2", msg_words, scratch, h_x, h_y, h_ok)
+    if B:
+        _build.check(lib.hash_to_g2_launch(
+            msg_words.data_ptr(), B, scratch.data_ptr(), h_x.data_ptr(),
+            h_y.data_ptr(), h_ok.data_ptr(), _build.stream_ptr(msg_words)),
+            "hash_to_g2")
+        _build.launches["hash_to_g2"] += 1
+    return h_x, h_y, h_ok
+
+
+# --- K12 -----------------------------------------------------------------
+
+
+def precomp_miller_product_kernel(xp, yp, lines, mask):
+    """K12: the shared-accumulator Miller product over host-precomputed
+    lines (n_bits, B, 6, 2, 33) at the B affine G1 points (xp, yp), lanes
+    live where `mask`; one conjugated Fq12 (2, 3, 2, 33), canonical."""
+    B = xp.shape[0]
+    if B < 1:
+        raise ValueError("precomp_miller_product: no lanes")
+    n_bits = len(X_BITS)
+    for name, t, shape in (("xp", xp, (B, 33)), ("yp", yp, (B, 33)),
+                           ("lines", lines, (n_bits, B, 6, 2, 33))):
+        _limbs(name, t, shape)
+    _flags("mask", mask, B)
+    dev = xp.device
+    lib = lib_for(dev, "bls_pairing")
+    scratch = torch.empty(int(lib.precomp_miller_scratch_bytes(B)),
+                          dtype=torch.uint8, device=dev)
+    f = torch.empty((2, 3, 2, 33), dtype=torch.int32, device=dev)
+    _build.require_cuda("precomp_miller_product", xp, yp, lines, mask,
+                        scratch, f)
+    threads = min(256, -(-B // 32) * 32)
+    _build.check(lib.precomp_miller_product_launch(
+        xp.data_ptr(), yp.data_ptr(), lines.data_ptr(), mask.data_ptr(), B,
+        scratch.data_ptr(), f.data_ptr(), threads, _build.stream_ptr(xp)),
+        "precomp_miller_product")
+    _build.launches["precomp_miller_product"] += 1
+    return f
+
+
+# --- K13 and K14 -----------------------------------------------------------
+
+
+def msm_pippenger_kernel(x, y, digits, c: int):
+    """K13: sum_i k_i P_i by Pippenger's buckets, c-bit windows (digits
+    (B, W), most significant first); one Jacobian point (X, Y, Z), each
+    (33,) canonical."""
+    B, W = digits.shape
+    if not 1 <= c <= 16 or W != -(-255 // c) or W > 64:
+        raise ValueError(f"msm_pippenger: window {c} with {W} windows")
+    for name, t, shape in (("x", x, (B, 33)), ("y", y, (B, 33)),
+                           ("digits", digits, (B, W))):
+        _limbs(name, t, shape)
+    dev = x.device
+    lib = lib_for(dev, "bls_msm")
+    scratch = torch.empty(int(lib.msm_pippenger_scratch_bytes(B, W, c)),
+                          dtype=torch.uint8, device=dev)
+    out = torch.empty((3, 33), dtype=torch.int32, device=dev)
+    _build.require_cuda("msm_pippenger", x, y, digits, scratch, out)
+    _build.check(lib.msm_pippenger_launch(
+        x.data_ptr(), y.data_ptr(), digits.data_ptr(), B, W, c,
+        scratch.data_ptr(), out.data_ptr(), _build.stream_ptr(x)),
+        "msm_pippenger")
+    _build.launches["msm_pippenger"] += 1
+    return tuple(out)
+
+
+def msm_double_add_kernel(x, y, bits, mask):
+    """K14: sum_i k_i P_i by a double-and-add over each lane's bits (B,
+    nbits) MSB first, the lanes where `mask` is False dropped, then the
+    tree sum; B a power of two.  One Jacobian point (X, Y, Z), each
+    (33,) canonical."""
+    B, nbits = bits.shape
+    if B < 1 or B & (B - 1):
+        raise ValueError(f"msm_double_add: {B} lanes, not a power of two")
+    for name, t, shape in (("x", x, (B, 33)), ("y", y, (B, 33)),
+                           ("bits", bits, (B, nbits))):
+        _limbs(name, t, shape)
+    _flags("mask", mask, B)
+    dev = x.device
+    lib = lib_for(dev, "bls_msm")
+    scratch = torch.empty(int(lib.msm_double_add_scratch_bytes(B)),
+                          dtype=torch.uint8, device=dev)
+    out = torch.empty((3, 33), dtype=torch.int32, device=dev)
+    _build.require_cuda("msm_double_add", x, y, bits, mask, scratch, out)
+    _build.check(lib.msm_double_add_launch(
+        x.data_ptr(), y.data_ptr(), bits.data_ptr(), mask.data_ptr(), nbits,
+        B, scratch.data_ptr(), out.data_ptr(), _build.stream_ptr(x)),
+        "msm_double_add")
+    _build.launches["msm_double_add"] += 1
+    return tuple(out)

@@ -16,15 +16,24 @@ The final exponentiation uses the x-structured hard part,
 standard pairing value: compare with JAX, or with the oracle's
 `final_exponentiate(...)**3`.
 
+For a G2 argument known on the host (every `pairing_check_device` call),
+`precompute_g2_lines` runs the T-update schedule once per point in oracle
+Fq2 arithmetic and `miller_product_precomp` only evaluates the lines at
+P: no G2 arithmetic on the device.
+
 The kernels K9 (`rlc_miller_product`) and K10 (`final_exp_is_one`) in
-`csrc/bls_rlc.cu` compute the same values.
+`csrc/bls_rlc.cu`, and K12 (`precomp_miller_product`, `csrc/bls_pairing.cu`)
+compute the same values.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from ..bls import curve as _pycurve
 from ..bls import pairing as _pyp
 from ..bls.fields import BLS_X, Q, R, Fq2
 from . import curve as C
@@ -141,6 +150,89 @@ def miller_product_batch(xp, yp, xq, yq, mask):
     return tw.fq12_conj(f)       # negative BLS parameter
 
 
+# --- fixed-argument (host-known G2) line precomputation ---------------------
+
+
+def _host_line_coeffs_dbl(T):
+    """Oracle-Fq2 tangent coefficients at Jacobian T (`_dbl_step`'s
+    formula, on the host)."""
+    X, Y, Z = T
+    XX = X.square()
+    YY = Y.square()
+    ZZ = Z.square()
+    cy = Y * Z * ZZ * 2
+    cx = -(XX * ZZ * 3)
+    c0 = XX * X * 3 - YY * 2
+    return c0, cx, cy
+
+
+def _host_line_coeffs_add(T, xq, yq):
+    """Oracle-Fq2 chord coefficients through T and affine (xq, yq)."""
+    X, Y, Z = T
+    ZZ = Z.square()
+    H = X - xq * ZZ
+    I = Y - yq * ZZ * Z
+    ZH = Z * H
+    return I * xq - ZH * yq, -I, ZH
+
+
+@functools.lru_cache(maxsize=64)
+def _g2_lines_from_affine(x0: int, x1: int, y0: int, y1: int) -> np.ndarray:
+    """Miller line coefficients for a fixed affine G2 point (JAX
+    `pairing_jax.py:203`): one (n_bits, 6, 2, 33) int32 array of
+    Montgomery Fq2 limbs, slots [dbl_c0, dbl_cx, dbl_cy, add_c0, add_cx,
+    add_cy]; the add slots are identity filler on 0 bits."""
+    xq, yq = Fq2(x0, x1), Fq2(y0, y1)
+    T = _pycurve.g2.from_affine(xq, yq)
+    rows = []
+    filler = (Fq2(1, 0), Fq2(0, 0), Fq2(0, 0))
+    for bit in X_BITS:
+        dbl = _host_line_coeffs_dbl(T)
+        T = _pycurve.g2.double(T)
+        if bit:
+            add = _host_line_coeffs_add(T, xq, yq)
+            T = _pycurve.g2.add(T, _pycurve.g2.from_affine(xq, yq))
+        else:
+            add = filler
+        rows.append(np.stack([tw.fq2_from_oracle(c) for c in dbl + add]))
+    return np.stack(rows).astype(np.int32)
+
+
+def precompute_g2_lines(q_pt) -> np.ndarray:
+    """Host-side fixed-argument precompute for a (non-infinity) oracle
+    Jacobian G2 point; cached per affine point."""
+    aff = _pycurve.g2.to_affine(q_pt)
+    assert aff is not None, "cannot precompute lines for infinity"
+    x, y = aff
+    return _g2_lines_from_affine(x.c0, x.c1, y.c0, y.c1)
+
+
+def miller_product_precomp(xp, yp, lines, mask):
+    """Shared-accumulator Miller product with host-precomputed lines (JAX
+    `pairing_jax.py:234`): xp, yp (B, 33) G1 affine limbs, lines
+    (n_bits, B, 6, 2, 33) from `precompute_g2_lines` stacked over the
+    batch, mask (B,).  No G2 arithmetic: the line evaluation at P, the
+    product tree and one accumulator square and product per step.
+    Returns one Fq12 (conjugated; NOT final-exponentiated)."""
+    B = xp.shape[0]
+    dev = xp.device
+    f = const(tw.FQ12_ONE_L, dev)
+    one_b = const(tw.FQ12_ONE_L, dev).expand((B,) + tw.FQ12_ONE_L.shape)
+    mask_e = mask[:, None, None, None, None]
+
+    def line(c0, cx, cy):
+        return torch.where(mask_e, _eval_line(c0, cx, cy, xp, yp), one_b)
+
+    for k, bit in enumerate(X_BITS.tolist()):
+        L = lines[k]
+        f = tw.fq12_sqr(f)
+        f = tw.fq12_mul(f, _product_tree(line(L[:, 0], L[:, 1], L[:, 2]), B))
+        if bit:
+            f = tw.fq12_mul(f, _product_tree(
+                line(L[:, 3], L[:, 4], L[:, 5]), B))
+    return tw.fq12_conj(f)
+
+
 def fq12_pow_x_abs(g):
     """g^|x| via square-and-multiply over the fixed 64-bit parameter."""
     acc = const(tw.FQ12_ONE_L, g.device).expand(g.shape)
@@ -170,6 +262,13 @@ def final_exponentiate(f):
         tw.fq12_mul(pow_x(pow_x(t2)), tw.fq12_frobenius(t2, 2)),
         tw.fq12_conj(t2))                                 # ^(x^2+q^2-1)
     return tw.fq12_mul(t3, tw.fq12_mul(tw.fq12_sqr(m), m))  # · m^3
+
+
+def multi_pairing_check_precomp(xp, yp, lines, mask):
+    """`multi_pairing_check` with precomputed lines (JAX
+    `pairing_jax.py:273`)."""
+    total = miller_product_precomp(xp, yp, lines, mask)
+    return tw.fq12_is_one(final_exponentiate(total))
 
 
 def multi_pairing_check(xp, yp, xq, yq, mask):

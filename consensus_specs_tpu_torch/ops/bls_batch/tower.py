@@ -124,6 +124,10 @@ def fq2_is_zero(a):
     return (fq_canon(a) == 0).all(dim=-1).all(dim=-1)
 
 
+def fq2_eq(a, b):
+    return (fq_canon(a) == fq_canon(b)).all(dim=-1).all(dim=-1)
+
+
 # --- Fq6 --------------------------------------------------------------------
 
 

@@ -86,7 +86,7 @@ def slice8():
     intermediates, and the JAX package's components on the same arrays."""
     trace = {}
     ok = TB.batch_verify(_port_tasks(2), rng=random.Random(SEED),
-                         device="cpu", trace=trace)
+                         device="cpu", device_h2c=False, trace=trace)
     np_args = [a.numpy() for a in trace["inputs"]]
     (apx, apy, a_inf), r_sig = jax.jit(_jax_stage1)(
         *np_args[:4], np_args[6], np_args[7])

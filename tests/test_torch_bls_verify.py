@@ -1,20 +1,24 @@
-"""Slice 3 of the port as a whole: the RLC batch verify (host hashing)
-and the BLS facade, against `consensus_specs_tpu.ops.bls_batch` and
-`consensus_specs_tpu.ops.bls`, tolerance zero.
+"""Slices 3 and 4 of the port as a whole: the RLC batch verify (host and
+device hashing) and the BLS facade, against
+`consensus_specs_tpu.ops.bls_batch` and `consensus_specs_tpu.ops.bls`,
+tolerance zero.
 
 - the port's host oracle copies agree with the JAX package's on parsing,
   hash-to-G2, signing and FastAggregateVerify;
 - `convert.rlc_inputs` equals JAX's `_prepare_rlc_inputs` array by
-  array, with one seeded `random.Random` on each side;
+  array (host hashing, and the message words of device hashing), with
+  one seeded `random.Random` on each side;
 - the whole slice at bucket 8 (2 live statements): the port's plain
-  `batch_verify(device="cpu")` gives JAX's `batch_verify(...,
-  device_h2c=False)` verdict (its intermediates are held against JAX's
-  components in `tests/test_torch_bls_slice.py`);
+  `batch_verify(device="cpu", device_h2c=False)` gives JAX's
+  `batch_verify(..., device_h2c=False)` verdict (its intermediates are
+  held against JAX's components in `tests/test_torch_bls_slice.py`);
+- `batch_verify` hashes on the device by default for 32-byte messages;
 - the facade: backends, the kill-switch, `DeferredBatch` recording,
-  once-only settlement and handles, and the entry points' refusals.
+  once-only settlement and handles.
 
-The rejected batch, one-sided infinity and a `DeferredBatch` settled
-through the plain batch are `slow` here; `chip_smoke.py` and
+The rejected batch, one-sided infinity, the device-hashed batch against
+JAX's (accept and reject) and a `DeferredBatch` settled through the
+plain batch are `slow` here; `chip_smoke.py` and
 `tests/test_torch_cuda.py` hold them on the card."""
 
 import random
@@ -27,6 +31,7 @@ from consensus_specs_tpu.ops import bls_batch as JB
 from consensus_specs_tpu.ops.bls import ciphersuite as Jcs
 from consensus_specs_tpu.ops.bls import curve as Jcurve
 from consensus_specs_tpu.ops.bls import hash_to_curve as Jh2c
+from consensus_specs_tpu.ops.bls_batch import h2c_jax as Jh2cdev
 from consensus_specs_tpu_torch import convert as C
 from consensus_specs_tpu_torch.ops import bls as TBLS
 from consensus_specs_tpu_torch.ops import bls_batch as TB
@@ -152,13 +157,29 @@ def test_rlc_inputs_match_jax_prepare(n):
     assert not r_bits[n:].any() and not got[7][n:].any()      # pad lanes
 
 
+def test_rlc_inputs_device_h2c_match_jax_prepare():
+    """Device hashing: the message words in place of (h_x, h_y), the
+    same bits as JAX's uint32 words, padded by repeating row 0."""
+    jt, tt = _tasks(_raw(3))
+    want, n_j = JB._prepare_rlc_inputs(jt, random.Random(SEED), None,
+                                       device_h2c=True)
+    got, n_t = C.rlc_inputs(tt, random.Random(SEED), "cpu", device_h2c=True)
+    assert n_t == n_j == 3 and len(got) == len(want) == 7
+    assert got[4].dtype == torch.int32 and got[4].shape == (8, 8)
+    _same(got[4].numpy().view(np.uint32), want[4])
+    for i in (0, 1, 2, 3, 5, 6):
+        _same(got[i], want[i])
+
+
 def test_rlc_inputs_degenerate_batches():
+    """Nothing to check: True.  Infinity on one side of a statement: no
+    batch, each statement checked by `pairing_check_device` (JAX `:622`),
+    here on the CPU: the oracle's verdict, False."""
     inf = (Tcurve.g1.infinity(), b"\x00" * 32, Tcurve.g2.infinity())
     assert C.rlc_inputs([inf, inf], random.Random(0), "cpu") == (None, True)
     (pk, msg, sig), = _tasks(_raw(1))[1]
-    one_sided = [(pk, msg, sig), (pk, msg, Tcurve.g2.infinity())]
-    arrays, live = C.rlc_inputs(one_sided, random.Random(0), "cpu")
-    assert arrays is None and len(live) == 2
+    one_sided = [(pk, msg, Tcurve.g2.infinity()), (pk, msg, sig)]
+    assert C.rlc_inputs(one_sided, random.Random(0), "cpu") == (None, False)
 
 
 # --- the whole slice at bucket 8 ----------------------------------------------------
@@ -171,15 +192,43 @@ def test_whole_slice_verdict_equals_jax_batch_verify():
     jt, tt = _tasks(_raw(2))
     want = JB.batch_verify(jt, rng=random.Random(SEED), device_h2c=False)
     assert want is True
-    assert TB.batch_verify(tt, rng=random.Random(SEED), device="cpu") is want
+    assert TB.batch_verify(tt, rng=random.Random(SEED), device="cpu",
+                           device_h2c=False) is want
 
 
 # --- the entry points' refusals and degenerate batches ------------------------------
 
 
-def test_batch_verify_refuses_device_h2c():
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        TB.batch_verify([], device="cpu", device_h2c=True)
+def test_batch_verify_hashes_on_the_device_by_default(monkeypatch):
+    """32-byte messages go through the device hash stage (K11's route)
+    unless `device_h2c=False`; other lengths are hashed on the host, as
+    JAX routes them, even with `device_h2c=True`.  The stages are spies here: the verdicts through
+    both routes are held in the slow tests below and on the card."""
+    calls = []
+
+    def hash_stage(words):
+        calls.append(words.shape)
+        B = words.shape[0]
+        return (torch.zeros((B, 2, 33), dtype=torch.int32),) * 2 + (
+            torch.ones(B, dtype=torch.bool),)
+
+    monkeypatch.setattr(TB, "hash_to_g2_affine", hash_stage)
+    monkeypatch.setattr(TB, "_rlc_pairing_core",
+                        lambda *a, **k: torch.ones(1, dtype=torch.bool))
+    _, tt = _tasks(_raw(2))
+    trace = {}
+    assert TB.batch_verify(tt, rng=random.Random(SEED), device="cpu",
+                           trace=trace) is True
+    assert calls == [(8, 8)] and len(trace["inputs"]) == 7
+    words = trace["inputs"][4].numpy().view(np.uint32)
+    _same(words[:2], Jh2cdev.msgs_to_words([t[1] for t in tt]))
+    for flag in (False, True):
+        tasks = tt if flag is False else [(pk, m + b"\x00", s)
+                                          for pk, m, s in tt]
+        trace = {}
+        TB.batch_verify(tasks, rng=random.Random(SEED), device="cpu",
+                        device_h2c=flag, trace=trace)
+        assert calls == [(8, 8)] and len(trace["inputs"]) == 8
 
 
 def test_batch_verify_runs_on_cuda_by_default():
@@ -210,7 +259,10 @@ def backend():
     TBLS.bls_active = True
 
 
-def test_facade_backends_and_eager_refusal(backend):
+def test_facade_backends_and_eager_calls(backend, monkeypatch):
+    """Under "torch" the eager calls check on the card (CUDA by default,
+    so they raise without one); inputs that fail parsing, and pairs all
+    at infinity, decide without a device."""
     (pks, msg, sig), = _raw(1)
     backend.use_backend("py")
     assert backend.FastAggregateVerify(pks, msg, sig) is True
@@ -218,12 +270,18 @@ def test_facade_backends_and_eager_refusal(backend):
     with pytest.raises(AssertionError):
         backend.use_backend("jax")
     backend.use_backend("torch")
-    for call in (lambda: backend.Verify(pks[0], msg, sig),
-                 lambda: backend.FastAggregateVerify(pks, msg, sig),
-                 lambda: backend.AggregateVerify(pks, [msg, msg], sig),
-                 lambda: backend.pairing_check([])):
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            call()
+    assert backend.Verify(pks[0], msg, b"\x01" * 96) is False
+    assert backend.FastAggregateVerify([], msg, sig) is False
+    assert backend.AggregateVerify(pks, [msg], sig) is False
+    if not torch.cuda.is_available():
+        for call in (lambda: backend.Verify(pks[0], msg, sig),
+                     lambda: backend.FastAggregateVerify(pks, msg, sig),
+                     lambda: backend.AggregateVerify(pks, [msg, msg], sig)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+    monkeypatch.setattr(backend, "_device", "cpu")
+    assert backend.pairing_check([]) is True
+    assert backend.pairing_check([(backend.Z1(), backend.G2())]) is True
     assert backend.SkToPk(5) == Jcs.SkToPk(5)
     backend.bls_active = False
     assert backend.Verify(b"", b"", b"") is True
@@ -299,7 +357,20 @@ def test_rejected_batch_matches_jax():
     jt, tt = _tasks(_raw(3, forge=1))
     want = JB.batch_verify(jt, rng=random.Random(SEED), device_h2c=False)
     assert want is False
-    assert TB.batch_verify(tt, rng=random.Random(SEED), device="cpu") is False
+    assert TB.batch_verify(tt, rng=random.Random(SEED), device="cpu",
+                           device_h2c=False) is False
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("forge", [None, 1])
+def test_device_h2c_batch_matches_jax(forge):
+    """Bucket 8 with the messages hashed by the plain device route,
+    against JAX's `batch_verify(..., device_h2c=True)`."""
+    jt, tt = _tasks(_raw(2, forge=forge))
+    want = JB.batch_verify(jt, rng=random.Random(SEED), device_h2c=True)
+    assert want is (forge is None)
+    assert TB.batch_verify(tt, rng=random.Random(SEED), device="cpu",
+                           device_h2c=True) is want
 
 
 @pytest.mark.slow

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K10 (and K3's gather mode) against their
+"""The port's CUDA kernels K1-K14 (and K3's gather mode) against their
 plain PyTorch versions on the card, bit for bit (the BLS kernels at
 canonical values), at small shapes.  Every test here needs an NVIDIA
 GPU and nvcc; without a card they skip.  On the card, where JAX is not
@@ -168,7 +168,8 @@ def test_records_root_gather_kernel(dev):
 
 
 _BLS_KERNELS = ("bls_field_ops", "rlc_scalar_mul", "rlc_miller_product",
-                "final_exp_is_one")
+                "final_exp_is_one", "hash_to_g2", "precomp_miller_product",
+                "msm_pippenger", "msm_double_add")
 
 
 def test_incremental_step_on_the_card(dev):
@@ -244,7 +245,7 @@ def test_rlc_kernels_against_plain_at_bucket_8(dev):
     _build.reset_launches()
     trace = {}
     assert B.batch_verify(_bls_tasks(2), rng=random.Random(5), device=dev,
-                          trace=trace) is True
+                          device_h2c=False, trace=trace) is True
     assert [_build.launches[k] for k in (
         "rlc_scalar_mul", "rlc_miller_product", "final_exp_is_one")] == [1] * 3
     plain = {}
@@ -276,13 +277,15 @@ def test_batch_verify_runs_on_the_card_by_default(dev):
     _build.reset_launches()
     assert B.batch_verify(_bls_tasks(3), rng=random.Random(1)) is True
     assert _build.launches["final_exp_is_one"] == 1
+    assert _build.launches["hash_to_g2"] == 1        # hashed on the card
     assert B.batch_verify(_bls_tasks(3, forge=2), rng=random.Random(1)) \
         is False
     tasks = _bls_tasks(2)
     tasks[1] = (tasks[1][0], tasks[1][1], curve.g2.infinity())
+    _build.reset_launches()
     assert B.batch_verify(tasks, rng=random.Random(1)) is False
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        B.batch_verify(tasks, device_h2c=True)
+    assert B.batch_verify(tasks, device_h2c=True) is False
+    assert _build.launches["precomp_miller_product"] >= 2
 
 
 def test_deferred_batch_settles_on_the_card(dev):
@@ -301,3 +304,106 @@ def test_deferred_batch_settles_on_the_card(dev):
     assert batch.verify(rng=random.Random(2)) is True
     assert _build.launches["final_exp_is_one"] == 1
     assert [h.result() for h in batch.handles] == [True, True]
+
+
+def _canon(x):
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+
+    if isinstance(x, tuple):
+        return tuple(_canon(v) for v in x)
+    return x if x.dtype == torch.bool else F.fq_canon(x)
+
+
+def _all_equal(got, want):
+    return all(torch.equal(g, w) for g, w in zip(got, _canon(want)))
+
+
+def test_hash_to_g2_kernel(dev):
+    import random
+
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls import curve
+    from consensus_specs_tpu_torch.ops.bls.hash_to_curve import (DST_G2,
+                                                                 hash_to_g2)
+    from consensus_specs_tpu_torch.ops.bls_batch import h2c
+    from consensus_specs_tpu_torch.ops.bls_batch import tower as T
+
+    rng = random.Random(4)
+    msgs = [bytes(rng.randrange(256) for _ in range(32)) for _ in range(3)]
+    msgs.append(b"\x00" * 32)
+    words = torch.from_numpy(h2c.msgs_to_words(msgs).view(np.int32)).to(dev)
+    before = _build.launches["hash_to_g2"]
+    got = B.hash_to_g2_affine(words)
+    torch.cuda.synchronize()
+    assert _build.launches["hash_to_g2"] == before + 1
+    assert _all_equal(got, B.hash_to_g2_affine(words, plain=True))
+    for i, m in enumerate(msgs):
+        x, y = curve.g2.to_affine(hash_to_g2(m, DST_G2))
+        assert (T.fq2_to_oracle(got[0][i]), T.fq2_to_oracle(got[1][i])) == \
+            (x, y)
+
+
+def test_precomp_miller_product_kernel(dev):
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls import curve as C
+
+    p = C.g1.mul(C.G1_GEN, 1337)
+    for k2 in (97531, 97532):
+        pairs = [(p, C.g2.mul(C.G2_GEN, 97531)),
+                 (C.g1.mul(C.g1.neg(p), k2), C.G2_GEN)]
+        args = [torch.from_numpy(a).to(dev)
+                for a in B.pairing_check_inputs(pairs)]
+        before = _build.launches["precomp_miller_product"]
+        got = B.precomp_miller_product(*args)
+        torch.cuda.synchronize()
+        assert _build.launches["precomp_miller_product"] == before + 1
+        assert torch.equal(got, _canon(B.precomp_miller_product(
+            *args, plain=True)))
+        assert B.pairing_check_device(pairs) is (k2 == 97531)
+
+
+@pytest.mark.parametrize("n,algo", [(8, "pippenger"), (16, "pippenger"),
+                                    (8, "double-add"), (40, "double-add")])
+def test_msm_kernels(dev, n, algo):
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls import curve as C
+
+    pts = [C.g1.mul(C.G1_GEN, 3 * i + 2) for i in range(n)]
+    ks = [pow(5, i + 1, C.R) for i in range(n)]
+    ks[1] = 0
+    pts[2] = C.g1.infinity()
+    _, c, arrays = B.msm_inputs(pts, ks, algo)
+    t = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+    name = "msm_pippenger" if algo == "pippenger" else "msm_double_add"
+    before = _build.launches[name]
+    if algo == "pippenger":
+        got = B.msm_pippenger(*t, c)
+        want = B.msm_pippenger(*t, c, plain=True)
+    else:
+        got = B.msm_double_add(*t)
+        want = B.msm_double_add(*t, plain=True)
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 1
+    assert _all_equal(got, want)
+    assert C.g1.eq_points(B.g1_multi_exp_device(pts, ks, algo=algo),
+                          C.g1.msm(pts, ks))
+
+
+def test_facade_eager_calls_and_multi_exp_on_the_card(dev):
+    from consensus_specs_tpu_torch.ops import bls as BLS
+    from consensus_specs_tpu_torch.ops.bls import ciphersuite as cs
+
+    assert BLS.backend_name() == "torch"
+    msg = b"\x07" * 32
+    pks = [cs.SkToPk(sk) for sk in (3, 4)]
+    sig = cs.Aggregate([cs.Sign(sk, msg) for sk in (3, 4)])
+    _build.reset_launches()
+    assert BLS.FastAggregateVerify(pks, msg, sig) is True
+    assert BLS.FastAggregateVerify(pks, b"\x08" * 32, sig) is False
+    assert BLS.Verify(pks[0], msg, cs.Sign(3, msg)) is True
+    assert BLS.AggregateVerify(pks, [msg, msg], sig) is True
+    assert _build.launches["precomp_miller_product"] == 4
+    pts = [(1, cs.G1_GEN)] * 16
+    got = BLS.multi_exp(pts, list(range(1, 17)))
+    assert _build.launches["msm_pippenger"] == 1
+    assert BLS.eq(got, BLS.multiply(BLS.G1(), sum(range(1, 17))))
