@@ -7,7 +7,7 @@ from the root of the repository, on a machine with one CUDA card, nvcc
 and PyTorch built for CUDA.  The script:
 
 1. prints the card's name and power limit;
-2. builds the kernels K1-K14 from `consensus_specs_tpu_torch/csrc/` (one
+2. builds the kernels K1-K18 from `consensus_specs_tpu_torch/csrc/` (one
    nvcc per source, all started together) into the git-ignored
    `consensus_specs_tpu_torch/_build/`;
 3. runs each kernel and its plain PyTorch version on the card, on the
@@ -51,8 +51,27 @@ and PyTorch built for CUDA.  The script:
    4096 points (double-and-add, K14), each kernel held against its plain
    version and the result against the oracle's `g1.msm`, and the facade's
    `multi_exp` routing at 15 and 16 points;
-10. prints one JSON line of the kernels held, then, last, the result
-   line `{"ok": true, "device": {...}}`.
+10. slice 5, the scalar field: K15 (`fr_field_ops`) canonically equal to
+   the plain Fr ops on 1024 random elements and 0, 1, r - 1;
+11. config #5, Deneb `verify_blob_kzg_proof_batch` over `bench.py`
+   worker_kzg's 6 blobs: commitments (K14 at 4096 points) and proofs
+   (K16 + K14) made on the card, one commitment held against the host
+   oracle; the batch accepted through K16 per blob and K12 -> K10, each
+   blob's y equal to the host loop's, K16 equal to its plain version,
+   swapped proofs and a wrong blob rejected; cold and warm times with
+   the host and device split;
+12. PeerDAS `verify_cell_proof_batch` on `bench.py` worker_das's 128 x 8
+   closed-form matrix (1024 cells): accepted through K17, K14 (LL, RLP),
+   K13 (RL) and K12 -> K10, K17 equal to its plain version and the host
+   fold, a tampered cell rejected, a 16-cell sub-batch equal on the host
+   route and isolated by `verify_and_isolate`, `evaluate_cells_at` (K16)
+   equal to the host route; the stage split;
+13. fulu `compute_cells` of `bench.py`'s closed-form degree-65 blob
+   through K18 (n = 4096 inverse, n = 8192 forward): its 128 cells equal
+   to the closed form and the host FFT route, K18 equal to its plain
+   version at both sizes;
+14. prints each phase's seconds, one JSON line of the kernels held, then,
+   last, the result line `{"ok": true, "device": {...}}`.
 
 Every phase is fatal: any failure raises and the script exits non-zero
 without a result line.  It exits non-zero at once when no CUDA device is
@@ -99,6 +118,22 @@ BLS_FIELD_N = 1024
 SYNC_COMMITTEE = 512
 SYNC_SEED_BASE = 2000
 MSM_SIZES = (16, 512, 4096)
+# slice 5: config #5 (bench.py:1112 worker_kzg's 6 blobs), the PeerDAS
+# 128 x 8 sampling matrix (bench.py:626 worker_das, seed 20250), a
+# 16-cell sub-batch of it with cell 5 tampered, and K15's elements
+KZG_BLOBS = 6
+KZG_TIMED = 5
+DAS_BLOBS = 8
+DAS_COLUMNS = 128
+DAS_TIMED = 3
+DAS_SUB = 16
+DAS_BAD = 5
+FR_FIELD_N = 1024
+# an Fr Montgomery product over 8 32-bit words: 2 x 64 multiply-adds of
+# two 32-bit instructions each; an inversion by r - 2 is 254 squarings
+# and 163 products
+OPS_PER_FR_MONT = 2 * 64 * 2
+FR_INV_PRODUCTS = 254 + 163
 # a CIOS Montgomery product over 12 32-bit words is 2 x 144 32x32->64
 # multiply-adds, each at least two 32-bit integer instructions (the low
 # and the high half); the carries and the final subtraction are not
@@ -1346,6 +1381,477 @@ def msm_path(dev, record, int32_ops_per_s):
     return path_counts
 
 
+# --- slice 5: the scalar field, config #5, PeerDAS verify, compute_cells -----
+
+def batch_inv_products(n: int) -> int:
+    """Fr products that n inverses need: Montgomery's batch inversion, n - 1
+    prefix products, one inversion and 2 (n - 1) products back."""
+    return 3 * (n - 1) + FR_INV_PRODUCTS
+
+
+def fr_bound(products: int, nbytes: int, int32_ops_per_s: float):
+    """(ms, "operations" or "bytes"): the larger of `products` Fr
+    Montgomery products at the int32 rate and `nbytes` at the memory
+    rate."""
+    ops_ms = products * OPS_PER_FR_MONT / int32_ops_per_s * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def kernel_device_ms(fn, wrappers) -> dict:
+    """Run `fn` once with each kernel wrapper in `wrappers` ((module,
+    attribute) pairs) wrapped in CUDA events, a sleep kernel queued ahead
+    of each as in `device_ms`: {attribute: summed device ms of its
+    launches in that run}."""
+    import torch
+
+    events = {name: [] for _, name in wrappers}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in wrappers]
+
+    def timed(name, inner):
+        def call(*args, **kw):
+            torch.cuda._sleep(SLEEP_CYCLES)   # as device_ms: no host gap
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(*args, **kw)
+            end.record()
+            events[name].append((start, end))
+            return out
+        return call
+
+    try:
+        for mod, name, inner in saved:
+            setattr(mod, name, timed(name, inner))
+        fn()
+    finally:
+        for mod, name, inner in saved:
+            setattr(mod, name, inner)
+    torch.cuda.synchronize()
+    return {name: sum(s.elapsed_time(e) for s, e in evs)
+            for name, evs in events.items()}
+
+
+def _bls_wrappers():
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+    from consensus_specs_tpu_torch.ops.fr_batch import kernels as FK
+
+    return [(FK, "barycentric_kernel"), (FK, "coset_interpolate_kernel"),
+            (FK, "fft_kernel"), (K, "msm_pippenger_kernel"),
+            (K, "msm_double_add_kernel"),
+            (K, "precomp_miller_product_kernel"),
+            (K, "final_exp_is_one_kernel")]
+
+
+def check_fr_field_kernels(dev, record, int32_ops_per_s):
+    """K15 against the plain Fr ops on FR_FIELD_N random canonical
+    elements plus the edge values 0, 1, r - 1 (and on signed-lazy limbs
+    for `canon`); inv(0) = 0 and every product against Python ints."""
+    import random
+
+    import torch
+
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+
+    R = FB.R_MODULUS
+    r = random.Random(SEED + 5)
+    n = FR_FIELD_N
+    edge = [0, 1, R - 1]
+    xs = [r.randrange(R) for _ in range(n)] + edge
+    ys = [r.randrange(R) for _ in range(n)] + edge[::-1]
+    a = torch.from_numpy(FB.FR.to_mont_batch(xs)).to(dev)
+    b = torch.from_numpy(FB.FR.to_mont_batch(ys)).to(dev)
+    lazy = torch.from_numpy(np.random.RandomState(SEED + 5).randint(
+        -2**13, 2**13, (n, 33)).astype(np.int32)).to(dev)
+    cases = [("mul", a, b, 0), ("add", a, b, 0), ("sub", a, b, 0),
+             ("inv", a, None, 0), ("pow", a, None, 4096),
+             ("pow", a, None, R - 2), ("canon", lazy, None, 0)]
+    _build.reset_launches()
+    err = 0
+    for op, x, y, e in cases:
+        err = max(err, require_equal(
+            f"fr_field_ops {op}({e})", FB.field_op(op, x, y, e),
+            FB.field_op(op, x, y, e, plain=True)))
+    if FB.from_limbs(FB.field_op("inv", a)[n:]) != [0, 1, R - 1]:
+        raise AssertionError("fr_field_ops: inv of 0, 1, r - 1")
+    if FB.from_limbs(FB.field_op("mul", a, b)) != [
+            x * y % R for x, y in zip(xs, ys)]:
+        raise AssertionError("fr_field_ops: products differ from ints")
+    counts = read_launches("fr field checks")
+    print(f"fr field checks: {len(cases)} ops on {n} elements and 0, 1, "
+          f"r - 1 each: equal to the plain versions")
+    products = batch_inv_products(n + 3)
+    record("fr_field_ops", "consensus_specs_tpu_torch/csrc/fr_batch.cu",
+           "consensus_specs_tpu/ops/fr_batch.py:48", err,
+           device_ms(lambda: FB.field_op("inv", a), 5),
+           cuda_ms(lambda: FB.field_op("inv", a, plain=True), 1),
+           *fr_bound(products, 2 * (n + 3) * 132, int32_ops_per_s),
+           montgomery_products=products,
+           shape=f"inv over {n + 3} elements (the op timed); not on the "
+           "main path", replaces_also=[
+               "consensus_specs_tpu/ops/fr_batch.py:123",
+               "consensus_specs_tpu/ops/fr_batch.py:146",
+               "consensus_specs_tpu/ops/fr_batch.py:163",
+               "consensus_specs_tpu/ops/fr_batch.py:182"])
+    return counts
+
+
+def kzg_path(dev, record, int32_ops_per_s):
+    """Config #5, Deneb `verify_blob_kzg_proof_batch` over `bench.py:1112
+    worker_kzg`'s 6 blobs: the setup on the card (commitments by K14 at
+    4096 points, proofs by K16 + K14), one commitment against the host
+    oracle, the main path (K16 per blob, then K12 -> K10), each blob's y
+    against the host field loop, K16 against its plain version once,
+    swapped proofs and a wrong blob rejected, the cold and warm times
+    with the host and device split."""
+    import torch
+
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch import convert as CV
+    from consensus_specs_tpu_torch.models.deneb import \
+        polynomial_commitments as P
+    from consensus_specs_tpu_torch.ops import bls as BLS
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+
+    if BLS.backend_name() != "torch" or BLS._device != "cuda":
+        raise AssertionError("the BLS facade does not default to the card")
+    t0 = time.perf_counter()
+    blobs = CV.kzg_blobs(KZG_BLOBS)
+    print(f"kzg inputs: {len(blobs)} blobs of {P.FIELD_ELEMENTS_PER_BLOB} "
+          f"field elements (bench.py worker_kzg's recipe), built in "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    # -- setup on the card ---------------------------------------------------
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    commitments = [P.blob_to_kzg_commitment(b) for b in blobs]
+    t_com = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proofs = [P.compute_blob_kzg_proof(b, c)
+              for b, c in zip(blobs, commitments)]
+    t_proof = time.perf_counter() - t0
+    setup_counts = read_launches("kzg setup")
+    if (setup_counts.get("msm_double_add", 0) != 2 * len(blobs)
+            or setup_counts.get("fr_barycentric", 0) != len(blobs)):
+        raise AssertionError("the KZG setup did not run on the card")
+    BLS.use_backend("py")
+    try:
+        t0 = time.perf_counter()
+        oracle = P.blob_to_kzg_commitment(blobs[0])
+        oracle_s = time.perf_counter() - t0
+    finally:
+        BLS.use_backend("torch")
+    if bytes(oracle) != bytes(commitments[0]):
+        raise AssertionError("commitment 0 differs from the host oracle's")
+    print(f"kzg setup on the card: {len(blobs)} commitments in {t_com:.3f} "
+          f"s (K14 at 4096 points), {len(blobs)} proofs in {t_proof:.3f} s "
+          f"(K16 + K14); commitment 0 equals the host oracle's "
+          f"multi_exp ({oracle_s:.3f} s)")
+
+    # -- the main path ---------------------------------------------------------
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    ok = P.verify_blob_kzg_proof_batch(blobs, commitments, proofs)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_launches("kzg verify")
+    for name, want in (("fr_barycentric", len(blobs)),
+                       ("precomp_miller_product", 1),
+                       ("final_exp_is_one", 1)):
+        if counts.get(name, 0) != want:
+            raise AssertionError(f"verify_blob_kzg_proof_batch launched "
+                                 f"{name} {counts.get(name, 0)} times")
+    if ok is not True:
+        raise AssertionError("config #5's valid batch was rejected")
+    if P.verify_blob_kzg_proof_batch(blobs, commitments,
+                                     proofs[1:] + proofs[:1]) is not False:
+        raise AssertionError("config #5 with swapped proofs was accepted")
+    if P.verify_blob_kzg_proof_batch([blobs[1]] + blobs[1:], commitments,
+                                     proofs) is not False:
+        raise AssertionError("config #5 with a wrong blob was accepted")
+
+    # -- each y: K16 against the host field loop; the plain K16 once -----------
+    roots = [int(r) for r in P.bit_reversal_permutation(
+        P.compute_roots_of_unity(P.FIELD_ELEMENTS_PER_BLOB))]
+    for i, (blob, com) in enumerate(zip(blobs, commitments)):
+        poly = P.blob_to_polynomial(blob)
+        z = P.compute_challenge(blob, com)
+        y = FB.barycentric_eval([int(v) for v in poly], roots, int(z),
+                                device=dev)
+        BLS.use_backend("py")
+        try:
+            y_host = P.evaluate_polynomial_in_evaluation_form(poly, z)
+        finally:
+            BLS.use_backend("torch")
+        if y != int(y_host):
+            raise AssertionError(f"blob {i}: K16's y differs from the host "
+                                 "loop's")
+        if i == 0:
+            args = tuple(torch.from_numpy(a).to(dev)
+                         for a in FB.barycentric_inputs(
+                             [int(v) for v in poly], roots, int(z)))
+    k16 = FB.barycentric(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p16 = FB.barycentric(*args, plain=True)
+    torch.cuda.synchronize()
+    plain16 = (time.perf_counter() - t0) * 1e3
+    err16 = require_equal("fr_barycentric", k16, FB.FR.canon(p16))
+
+    warm = []
+    for _ in range(KZG_TIMED):
+        t0 = time.perf_counter()
+        if P.verify_blob_kzg_proof_batch(blobs, commitments,
+                                         proofs) is not True:
+            raise AssertionError("the timed KZG batch was rejected")
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    per = kernel_device_ms(lambda: P.verify_blob_kzg_proof_batch(
+        blobs, commitments, proofs), _bls_wrappers())
+    device_total = sum(per.values())
+    k16_ms = device_ms(lambda: FB.barycentric(*args), 5)
+    wall = statistics.median(warm)
+    print(f"kzg verify_blob_kzg_proof_batch (config #5, {len(blobs)} "
+          f"blobs): cold_ms={cold_ms:.4f} warm median_ms={wall:.4f} "
+          f"min_ms={min(warm):.4f} max_ms={max(warm):.4f} "
+          f"device_ms={device_total:.6f} (CUDA events around each launch "
+          f"in one call: " + ", ".join(f"{k} {v:.6f}" for k, v in
+                                       per.items() if v)
+          + f") host_ms={wall - device_total:.4f} device_share="
+          f"{device_total / wall:.4f} verifies_per_s="
+          f"{len(blobs) / wall * 1e3:.3f}; K16 per call {k16_ms:.6f} ms "
+          f"(plain {plain16:.3f} ms); each y equals the host loop's; "
+          f"swapped proofs and a wrong blob rejected")
+    width = P.FIELD_ELEMENTS_PER_BLOB
+    # f_i x_i, the W inverses of z - x_i, the W terms, z^W by squarings and
+    # the two scale products
+    products = (2 * width + batch_inv_products(width)
+                + width.bit_length() - 1 + 2)
+    record("fr_barycentric", "consensus_specs_tpu_torch/csrc/fr_batch.cu",
+           "consensus_specs_tpu/ops/fr_batch.py:220", err16, k16_ms, plain16,
+           *fr_bound(products, (2 * width + 4) * 132, int32_ops_per_s),
+           montgomery_products=products,
+           shape=f"W={width}, one blob of config #5",
+           replaces_also=["consensus_specs_tpu/ops/fr_batch.py:303",
+                          "consensus_specs_tpu/models/deneb/"
+                          "polynomial_commitments.py:224"])
+    return counts, setup_counts
+
+
+def das_path(dev, record, int32_ops_per_s):
+    """PeerDAS `verify_cell_proof_batch` on `bench.py:626 worker_das`'s
+    128 x 8 closed-form matrix (1024 cells, rung 1024): the main path
+    (K17, K14 for the LL and RLP MSMs, K13 for the RL MSM, K12 -> K10),
+    K17 against its plain version and the host fold, a tampered cell
+    rejected, a 16-cell sub-batch on the host route and isolated,
+    `evaluate_cells_at` against the host route, the stage split."""
+    import torch
+
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch import das as D
+    from consensus_specs_tpu_torch.das import ciphersuite as cs
+    from consensus_specs_tpu_torch.das import verify as V
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+
+    t0 = time.perf_counter()
+    com, idx, cells, proofs = cs.closed_form_matrix(
+        DAS_BLOBS, columns=range(DAS_COLUMNS))
+    n = len(idx)
+    print(f"das inputs: {DAS_COLUMNS} x {DAS_BLOBS} closed-form matrix "
+          f"({n} cells, seed 20250), built in "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    trace = {}
+    t0 = time.perf_counter()
+    ok = D.verify_cell_proof_batch(com, idx, cells, proofs, trace=trace)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_launches("das verify")
+    for name in ("fr_coset_interpolate", "precomp_miller_product",
+                 "final_exp_is_one"):
+        if counts.get(name, 0) != 1:
+            raise AssertionError(f"the DAS verify launched {name} "
+                                 f"{counts.get(name, 0)} times")
+    if counts.get("msm_double_add", 0) + counts.get("msm_pippenger", 0) != 3:
+        raise AssertionError("the DAS verify did not run its three MSMs")
+    if ok is not True:
+        raise AssertionError("the valid DAS matrix was rejected")
+
+    # -- K17 against its plain version and the host fold -----------------------
+    batch = trace["batch"]
+    args = tuple(torch.from_numpy(a).to(dev)
+                 for a in FB.coset_interpolate_inputs(
+                     batch.evals, cs.coset_idft_matrix(),
+                     V._rli_weight_rows(batch)))
+    k17 = FB.coset_interpolate(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p17 = FB.coset_interpolate(*args, plain=True)
+    torch.cuda.synchronize()
+    plain17 = (time.perf_counter() - t0) * 1e3
+    err17 = require_equal("fr_coset_interpolate", k17, FB.FR.canon(p17))
+    t0 = time.perf_counter()
+    host = V._host_rli_coeffs(batch)
+    host_fold_s = time.perf_counter() - t0
+    if FB.from_limbs(k17) != host or trace["rli"] != host:
+        raise AssertionError("K17's coefficients differ from the host fold")
+
+    # -- rejection, the host route and isolation on a sub-batch ---------------
+    bad = list(cells)
+    bad[DAS_BAD] = bad[DAS_BAD][:-32] + int.to_bytes(7, 32, "big")
+    if D.verify_cell_proof_batch(com, idx, bad, proofs) is not False:
+        raise AssertionError("a DAS matrix with a tampered cell was accepted")
+    s = slice(0, DAS_SUB)
+    for cl, want in ((cells, True), (bad, False)):
+        sub = (com[s], idx[s], cl[s], proofs[s])
+        if (D.verify_cell_proof_batch(*sub, device=False) is not want
+                or D.verify_cell_proof_batch(*sub) is not want):
+            raise AssertionError(f"the {DAS_SUB}-cell sub-batch: routes "
+                                 "disagree")
+    t0 = time.perf_counter()
+    flags = D.verify_and_isolate(com[s], idx[s], bad[s], proofs[s])
+    isolate_s = time.perf_counter() - t0
+    if flags != (False, [k != DAS_BAD for k in range(DAS_SUB)]):
+        raise AssertionError(f"verify_and_isolate: {flags}")
+    z = 0xFEEDFACE
+    if D.evaluate_cells_at(cells[s], idx[s], z) != D.evaluate_cells_at(
+            cells[s], idx[s], z, device=False):
+        raise AssertionError("evaluate_cells_at: K16 differs from the host")
+
+    walls, stages = [], []
+    for _ in range(DAS_TIMED):
+        tr = {}
+        t0 = time.perf_counter()
+        if D.verify_cell_proof_batch(com, idx, cells, proofs,
+                                     trace=tr) is not True:
+            raise AssertionError("the timed DAS batch was rejected")
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        stages.append(tr["seconds"])
+    per = kernel_device_ms(lambda: D.verify_cell_proof_batch(
+        com, idx, cells, proofs), _bls_wrappers())
+    device_total = sum(per.values())
+    k17_ms = device_ms(lambda: FB.coset_interpolate(*args), 5)
+    wall = statistics.median(walls)
+    split = {k: statistics.median(st[k] for st in stages) * 1e3
+             for k in stages[0]}
+    print(f"das verify_cell_proof_batch ({n} cells, rung "
+          f"{args[0].shape[0]}): first_ms={first_ms:.4f} median_ms="
+          f"{wall:.4f} min_ms={min(walls):.4f} max_ms={max(walls):.4f} "
+          f"stages_median_ms " + json.dumps({k: round(v, 4) for k, v in
+                                              split.items()})
+          + f" device_ms={device_total:.6f} (CUDA events around each launch "
+          f"in one call: " + ", ".join(f"{k} {v:.6f}" for k, v in
+                                       per.items() if v)
+          + f") host_ms={wall - device_total:.4f} cells_per_s="
+          f"{n / wall * 1e3:.3f}; K17 equals its plain version (plain "
+          f"{plain17:.3f} ms) and the host fold ({host_fold_s:.3f} s); a "
+          f"tampered cell rejected; {DAS_SUB}-cell sub-batch equal on the "
+          f"host route, verify_and_isolate flags cell {DAS_BAD} "
+          f"({isolate_s:.3f} s); evaluate_cells_at on {DAS_SUB} cells "
+          f"equals the host route")
+    products = n * 64 * 64 + n * 64
+    nbytes = (2 * args[0].shape[0] * 64 + 64 * 64 + 64) * 132
+    record("fr_coset_interpolate",
+           "consensus_specs_tpu_torch/csrc/fr_batch.cu",
+           "consensus_specs_tpu/ops/fr_batch.py:315", err17, k17_ms, plain17,
+           *fr_bound(products, nbytes, int32_ops_per_s),
+           montgomery_products=products,
+           shape=f"{n} cells at rung {args[0].shape[0]}, width 64",
+           replaces_also=["consensus_specs_tpu/ops/fr_batch.py:396"])
+    return counts
+
+
+def compute_cells_path(dev, record, int32_ops_per_s):
+    """Fulu `compute_cells` of `bench.py:771-794`'s closed-form degree-65
+    blob: the main path (K18 at n = 4096 inverse, then n = 8192 forward),
+    its 128 cells against the closed form and the host FFT route, K18
+    against its plain version at both sizes, the times."""
+    import torch
+
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch import convert as CV
+    from consensus_specs_tpu_torch import das as D
+    from consensus_specs_tpu_torch.das import ciphersuite as cs
+    from consensus_specs_tpu_torch.das import compute as DC
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+
+    blob, cells, _, _ = CV.closed_form_blob()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    got = D.compute_cells(blob)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_launches("compute_cells")
+    if counts.get("fr_fft", 0) != 2:
+        raise AssertionError("compute_cells did not run K18 twice")
+    if got != cells:
+        raise AssertionError("compute_cells differs from the closed form")
+    t0 = time.perf_counter()
+    if D.compute_cells(blob, device=False) != got:
+        raise AssertionError("compute_cells differs from the host route")
+    host_ms = (time.perf_counter() - t0) * 1e3
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        D.compute_cells(blob)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    m = cs.FIELD_ELEMENTS_PER_BLOB
+    evals = DC.blob_to_poly_ints(blob)
+    brp = [evals[cs.reverse_bits(i, m)] for i in range(m)]
+    coeffs = DC.poly_coefficients(blob)
+    sizes = {}
+    err = 0
+    for label, rows, roots, inverse in (
+            ("inverse", [brp], cs.roots_of_unity(m), True),
+            ("forward", [list(coeffs) + [0] * m], cs.roots_of_unity(2 * m),
+             False)):
+        args = tuple(torch.from_numpy(a).to(dev)
+                     for a in FB.fft_inputs(rows, roots, inverse))
+        k18 = FB.fft(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p18 = FB.fft(*args, plain=True)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        err = max(err, require_equal(f"fr_fft {label} n={len(roots)}", k18,
+                                     FB.FR.canon(p18)))
+        # the butterflies read the first n/2 roots; only the inverse scales
+        nn = len(roots)
+        products = nn // 2 * (nn.bit_length() - 1) + (nn if inverse else 0)
+        nbytes = (2 * nn + nn // 2 + (1 if inverse else 0)) * 132
+        sizes[label] = (nn, device_ms(lambda: FB.fft(*args), 5), plain,
+                        products, fr_bound(products, nbytes, int32_ops_per_s))
+    print(f"compute_cells (closed-form degree-65 blob): first_ms="
+          f"{first_ms:.4f} median_ms={statistics.median(walls):.4f} "
+          f"min_ms={min(walls):.4f} max_ms={max(walls):.4f} host FFT route "
+          f"{host_ms:.4f} ms; 128 cells equal the closed form and the host "
+          f"route; K18 " + ", ".join(
+              f"n={nn} {label} {kms:.6f} ms (plain {pms:.3f} ms)"
+              for label, (nn, kms, pms, _, _) in sizes.items())
+          + " equal to the plain version")
+    nn, kms, pms, products, (bms, by) = sizes["forward"]
+    inn, ikms, ipms, iproducts, (ibms, _) = sizes["inverse"]
+    record("fr_fft", "consensus_specs_tpu_torch/csrc/fr_batch.cu",
+           "consensus_specs_tpu/ops/fr_batch.py:417", err, kms, pms, bms, by,
+           montgomery_products=products,
+           shape=f"n={nn} forward, batch 1 (compute_cells' extension)",
+           inverse_ms=ikms, inverse_plain_ms=ipms, inverse_bound_ms=ibms,
+           inverse_shape=f"n={inn} inverse, batch 1",
+           replaces_also=["consensus_specs_tpu/ops/fr_batch.py:515",
+                          "consensus_specs_tpu/das/compute.py:122"])
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1369,6 +1875,13 @@ def main() -> int:
     print(f"sms: {n_sm}  max_sm_clock_mhz: {max_clock_hz / 1e6:.0f}  "
           f"int32_ops_per_s: {int32_ops_per_s:.4g}")
 
+    t_phase = [time.perf_counter()]
+
+    def phase(name):
+        now = time.perf_counter()
+        print(f"phase {name}: {now - t_phase[0]:.3f} s")
+        t_phase[0] = now
+
     # -- build ------------------------------------------------------------
     t0 = time.perf_counter()
     built = _build.build()
@@ -1383,6 +1896,7 @@ def main() -> int:
                     print(f"ptxas {name}: {line.strip()}")
     for name in _build.SOURCES:
         _build.load(name)
+    phase("build")
 
     # -- inputs: the flagship's synthetic mainnet registry, from SEED -----
     n = N_VALIDATORS
@@ -1545,6 +2059,8 @@ def main() -> int:
     print("step stages (device ms, CUDA events): "
           + json.dumps({k: round(v, 6) for k, v in parts.items()}))
 
+    phase("slice 1 kernels and full step")
+
     # -- slice 2: the incremental step of bench.py's epoch worker ----------
     incr_inputs = IncrementalInputs(n, reg, dev)
     check_incremental_kernels(incr_inputs, new_bal, new_eff, k3, kernels,
@@ -1556,26 +2072,44 @@ def main() -> int:
             kernels[name]["step_device_ms"] = sum(step_device.get(k, 0.0)
                                                   for k in names)
 
+    phase("incremental step and proofs")
+
     # -- slices 3 and 4: the RLC batch verify, both routes -----------------
     field_counts = check_bls_field_kernels(dev, record, int32_ops_per_s)
+    phase("bls field checks")
     bls_counts, h2c_counts, facade_counts = bls_path(dev, record,
                                                      int32_ops_per_s)
+    phase("bls batch (config #2)")
     # -- slice 4: config #3's pairing check and the facade; the MSM -------
     check_counts, fav_counts = pairing_check_path(dev, record,
                                                   int32_ops_per_s)
+    phase("pairing check (config #3)")
     msm_counts = msm_path(dev, record, int32_ops_per_s)
+    phase("msm")
+    # -- slice 5: the scalar field, config #5, PeerDAS, compute_cells -------
+    fr_counts = check_fr_field_kernels(dev, record, int32_ops_per_s)
+    phase("fr field checks")
+    kzg_counts, kzg_setup_counts = kzg_path(dev, record, int32_ops_per_s)
+    phase("kzg (config #5)")
+    das_counts = das_path(dev, record, int32_ops_per_s)
+    phase("das verify")
+    cells_counts = compute_cells_path(dev, record, int32_ops_per_s)
+    phase("compute_cells")
 
     paths = {"full_step": full_counts, "incremental_step": incr_counts,
              "proofs": proof_counts, "bls_batch_h2c": h2c_counts,
              "bls_batch": bls_counts, "bls_deferred_batch": facade_counts,
              "pairing_check": check_counts,
-             "facade_fast_aggregate_verify": fav_counts, **msm_counts}
+             "facade_fast_aggregate_verify": fav_counts, **msm_counts,
+             "kzg_setup": kzg_setup_counts, "kzg_verify": kzg_counts,
+             "das_verify": das_counts, "compute_cells": cells_counts}
+    # K7 and K15 hold the field layers (rows 7-8, row 14); no path runs them
+    field_checks = {"bls_field_ops": field_counts, "fr_field_ops": fr_counts}
     for k in kernels.values():
         by = {p: c[k["name"]] for p, c in paths.items() if c.get(k["name"])}
-        if k["name"] == "bls_field_ops":
-            # K7 holds rows 7-8; no path runs it
-            k["launches_by_path"] = {"field_checks":
-                                     field_counts["bls_field_ops"]}
+        if k["name"] in field_checks:
+            k["launches_by_path"] = {
+                "field_checks": field_checks[k["name"]][k["name"]]}
             k["launches"] = 0
             continue
         if not by:
@@ -1583,7 +2117,8 @@ def main() -> int:
         k["launches_by_path"] = by
         main_path = ("incremental_step", "full_step", "bls_batch_h2c",
                      "pairing_check", f"msm_{MSM_SIZES[1]}",
-                     f"msm_{MSM_SIZES[2]}", "proofs")
+                     f"msm_{MSM_SIZES[2]}", "proofs", "kzg_verify",
+                     "das_verify", "compute_cells")
         k["launches"] = next(by[p] for p in main_path if by.get(p))
 
     for k in kernels.values():

@@ -29,7 +29,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("epoch_sweep", "sha256", "records_root", "incremental", "bls_rlc",
-           "bls_h2c", "bls_pairing", "bls_msm")
+           "bls_h2c", "bls_pairing", "bls_msm", "fr_batch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,7 +38,8 @@ launches = {"epoch_sweep": 0, "sha256_64B": 0, "records_root": 0,
             "proof_paths": 0, "bls_field_ops": 0, "rlc_scalar_mul": 0,
             "rlc_miller_product": 0, "final_exp_is_one": 0, "hash_to_g2": 0,
             "precomp_miller_product": 0, "msm_pippenger": 0,
-            "msm_double_add": 0}
+            "msm_double_add": 0, "fr_field_ops": 0, "fr_barycentric": 0,
+            "fr_coset_interpolate": 0, "fr_fft": 0}
 
 
 def reset_launches() -> None:

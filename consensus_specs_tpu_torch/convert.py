@@ -119,3 +119,54 @@ def rlc_inputs(tasks, rng, device="cuda", device_h2c=False):
     if arrays is None:
         return None, n
     return tuple(_to(a, dev) for a in arrays), n
+
+
+# --- the scalar field (Fr) and the KZG / DAS inputs -------------------------
+
+
+def fr_limbs_to_torch(limbs, device="cuda") -> torch.Tensor:
+    """JAX `FR` limbs (numpy int32 (..., 33), Montgomery R = 2**396) ->
+    the port's tensor on `device`, the same limbs."""
+    from .ops.fr_batch import N_LIMBS
+
+    a = np.ascontiguousarray(np.asarray(limbs), dtype=np.int32)
+    assert a.shape[-1] == N_LIMBS
+    return torch.from_numpy(a).to(resolve_device(device))
+
+
+def fr_ints_to_torch(xs, device="cuda") -> torch.Tensor:
+    """Canonical ints -> (n, 33) Montgomery limbs on `device` (JAX
+    `FR.to_mont_batch`'s limbs)."""
+    from .ops.fr_batch import FR
+
+    return fr_limbs_to_torch(FR.to_mont_batch([int(x) for x in xs]), device)
+
+
+def kzg_blobs(n: int = 6) -> list[bytes]:
+    """Config #5's blobs, the recipe of `bench.py:1112 worker_kzg`: field
+    element j of blob i is (2 + i)^(j + 256) mod r, 4096 elements of 32
+    big-endian bytes."""
+    from .ops.fr_batch import R_MODULUS
+
+    return [b"".join(int.to_bytes(pow(2 + i, j + 256, R_MODULUS), 32, "big")
+                     for j in range(4096)) for i in range(n)]
+
+
+def closed_form_blob(c2: int = 90001, c1: int = 80001, c0: int = 70001):
+    """The degree-65 blob f = c2 X^65 + c1 X^64 + c0 of `bench.py:771-794`
+    with its 128 cells and proofs in closed form: (blob, cells, proofs,
+    commitment)."""
+    from .das import ciphersuite as cs
+
+    m = cs.FIELD_ELEMENTS_PER_BLOB
+    p = cs.BLS_MODULUS
+    roots = cs.roots_of_unity(m)
+    evals = []
+    for i in range(m):
+        x = roots[cs.reverse_bits(i, m)]
+        evals.append((c2 * pow(x, 65, p) + c1 * pow(x, 64, p) + c0) % p)
+    commitment, per_cell = cs.closed_form_row(
+        c2, c1, c0, range(cs.CELLS_PER_EXT_BLOB))
+    cells = [per_cell[k][0] for k in range(cs.CELLS_PER_EXT_BLOB)]
+    proofs = [per_cell[k][1] for k in range(cs.CELLS_PER_EXT_BLOB)]
+    return cs._encode_evals(evals), cells, proofs, commitment

@@ -5,51 +5,39 @@
 // fq_inv), `ops/bls_batch/tower.py` (the Fq2/Fq6/Fq12 tower) and
 // `ops/bls_batch/curve_jax.py` (Jacobian pt_double / pt_add).
 //
-// Representation: the kernels' own.  An Fp is 12 x 32-bit words, fully
-// reduced in [0, p), in Montgomery form with R = 2^384; products are
-// CIOS with 64-bit partial products.  The TPU layout (33 signed 12-bit
-// limbs in int32, R = 2^396, lazy) was shaped by a machine without
-// 64-bit multiplies; here a 32x32->64 multiply-add is one instruction
-// pair.  Every value stays canonical, so each formula gives the unique
-// canonical result and the kernels agree with the plain PyTorch versions
-// (and JAX) at canonical values, bit for bit.
-//
-// Boundary format: the port's tensors are JAX's (..., 33) int32 limbs in
-// the R = 2^396 domain, possibly lazy.  `load_fp` accepts any such value
-// (signed limbs, |limb| < 2^30) and `store_fp` writes canonical limbs,
-// equal to `fq_canon` of the plain result.
+// Representation: `mont.cuh`'s core at 12 x 32-bit words, R = 2^384.
+// The TPU layout (33 signed 12-bit limbs in int32, R = 2^396, lazy) was
+// shaped by a machine without 64-bit multiplies; here a 32x32->64
+// multiply-add is one instruction pair.  `load_fp` accepts the port's
+// lazy limbs and `store_fp` writes canonical limbs, equal to `fq_canon`
+// of the plain result.
 //
 // Constants (p, -p^-1 mod 2^32, the conversion factors, the Frobenius
 // gammas, the untwist slot scales and |x|) are not typed in here: the
 // wrapper computes them from the port's Python oracle and fills the
 // `__constant__` block once through `bls_set_constants`.
 //
-// What bounds it: 32-bit integer multiply-add issue.  A Montgomery
-// product is 2 x 144 32x32->64 multiply-adds; everything above it is
-// counted in Montgomery products.
+// What bounds it: 32-bit integer multiply-add issue (an Fp product is
+// 2 x 144 32x32->64 multiply-adds).
 #pragma once
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mont.cuh"
 
-#define BLS_NW 12     // 32-bit words of an Fp
-#define BLS_NL 33     // 12-bit limbs of the boundary format
+#define BLS_NW 12       // 32-bit words of an Fp
+#define BLS_NL MONT_NL  // 12-bit limbs of the boundary format
 
-struct Fp { uint32_t w[BLS_NW]; };
+struct FpField {
+  static constexpr int NW = BLS_NW;
+  __device__ __forceinline__ static const MontConsts<BLS_NW>& k();
+};
+using Fp = Mont<FpField>;
 struct Fp2 { Fp c0, c1; };
 struct Fp6 { Fp2 c0, c1, c2; };
 struct Fp12 { Fp6 c0, c1; };
 template <class F> struct Jac { F x, y, z; };
 
 struct BlsConstants {
-  uint32_t p[BLS_NW];
-  uint32_t p_minus_2[BLS_NW];
-  uint32_t one[BLS_NW];     // 2^384 mod p: Montgomery one
-  uint32_t c_lo[BLS_NW];    // 2^372 mod p: mont(v, c_lo) = v * 2^-12
-  uint32_t c_hi[BLS_NW];    // 2^756 mod p: mont(v, c_hi) = v * 2^372
-  uint32_t c_top[BLS_NW];   // 2^768 mod p: mont(v, c_top) = v * 2^384
-  uint32_t c_out[BLS_NW];   // 2^396 mod p: mont(x R384, c_out) = x R396
-  uint32_t n0;              // -p^-1 mod 2^32
+  MontConsts<BLS_NW> f;     // p, p - 2, the Montgomery one, the conversions
   uint32_t jx, jy;          // w-power slots of a line's x and y terms
   uint32_t x_abs_hi, x_abs_lo;  // |x|, the BLS12-381 parameter
   Fp2 gamma[6];             // Frobenius scale of w^i (Montgomery form)
@@ -59,186 +47,48 @@ static_assert(sizeof(BlsConstants) == 281 * 4, "constant block layout");
 
 __constant__ BlsConstants BLS;
 
-// --- Fp ------------------------------------------------------------------
-
-__device__ __forceinline__ void fp_zero(Fp& r) {
-#pragma unroll
-  for (int j = 0; j < BLS_NW; ++j) r.w[j] = 0;
+__device__ __forceinline__ const MontConsts<BLS_NW>& FpField::k() {
+  return BLS.f;
 }
 
-__device__ __forceinline__ void fp_one(Fp& r) {
-#pragma unroll
-  for (int j = 0; j < BLS_NW; ++j) r.w[j] = BLS.one[j];
-}
+// --- Fp: mont.cuh's core at 12 words ---------------------------------------
 
+__device__ __forceinline__ void fp_zero(Fp& r) { mont_zero(r); }
+__device__ __forceinline__ void fp_one(Fp& r) { mont_one(r); }
 __device__ __forceinline__ void fp_from_const(Fp& r, const uint32_t* c) {
-#pragma unroll
-  for (int j = 0; j < BLS_NW; ++j) r.w[j] = c[j];
+  mont_from_const(r, c);
 }
-
 __device__ __forceinline__ bool fp_is_zero(const Fp& a) {
-  uint32_t acc = 0;
-#pragma unroll
-  for (int j = 0; j < BLS_NW; ++j) acc |= a.w[j];
-  return acc == 0;
+  return mont_is_zero(a);
 }
-
 __device__ __forceinline__ bool fp_eq(const Fp& a, const Fp& b) {
-  uint32_t acc = 0;
-#pragma unroll
-  for (int j = 0; j < BLS_NW; ++j) acc |= a.w[j] ^ b.w[j];
-  return acc == 0;
+  return mont_eq(a, b);
 }
-
-// r = t - p if (top:t) >= p, else t; t < 2p
-__device__ __forceinline__ void fp_reduce_once(Fp& r, const uint32_t* t,
-                                               uint32_t top) {
-  uint32_t d[BLS_NW];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < BLS_NW; ++j) {
-    uint64_t s = (uint64_t)t[j] - BLS.p[j] - borrow;
-    d[j] = (uint32_t)s;
-    borrow = (uint32_t)(s >> 63);
-  }
-  bool keep = (top == 0) && borrow;
-#pragma unroll
-  for (int j = 0; j < BLS_NW; ++j) r.w[j] = keep ? t[j] : d[j];
-}
-
-// Montgomery product a b 2^-384 mod p (CIOS); a < 2^384, b < p
 __device__ __forceinline__ void fp_mul(Fp& r, const Fp& a, const Fp& b) {
-  uint32_t t[BLS_NW + 2];
-#pragma unroll
-  for (int j = 0; j < BLS_NW + 2; ++j) t[j] = 0;
-#pragma unroll
-  for (int i = 0; i < BLS_NW; ++i) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < BLS_NW; ++j) {
-      uint64_t s = (uint64_t)a.w[j] * b.w[i] + t[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[BLS_NW] + c;
-    t[BLS_NW] = (uint32_t)s;
-    t[BLS_NW + 1] = (uint32_t)(s >> 32);
-    uint32_t m = t[0] * BLS.n0;
-    s = (uint64_t)m * BLS.p[0] + t[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < BLS_NW; ++j) {
-      s = (uint64_t)m * BLS.p[j] + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t[BLS_NW] + c;
-    t[BLS_NW - 1] = (uint32_t)s;
-    t[BLS_NW] = t[BLS_NW + 1] + (uint32_t)(s >> 32);
-  }
-  fp_reduce_once(r, t, t[BLS_NW]);
+  mont_mul(r, a, b);
 }
-
 __device__ __forceinline__ void fp_sqr(Fp& r, const Fp& a) { fp_mul(r, a, a); }
-
 __device__ __forceinline__ void fp_add(Fp& r, const Fp& a, const Fp& b) {
-  uint32_t t[BLS_NW];
-  uint32_t c = 0;
-#pragma unroll
-  for (int j = 0; j < BLS_NW; ++j) {
-    uint64_t s = (uint64_t)a.w[j] + b.w[j] + c;
-    t[j] = (uint32_t)s;
-    c = (uint32_t)(s >> 32);
-  }
-  fp_reduce_once(r, t, c);
+  mont_add(r, a, b);
 }
-
 __device__ __forceinline__ void fp_sub(Fp& r, const Fp& a, const Fp& b) {
-  uint32_t t[BLS_NW];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < BLS_NW; ++j) {
-    uint64_t s = (uint64_t)a.w[j] - b.w[j] - borrow;
-    t[j] = (uint32_t)s;
-    borrow = (uint32_t)(s >> 63);
-  }
-  uint32_t mask = 0u - borrow;            // add p back on a borrow
-  uint32_t c = 0;
-#pragma unroll
-  for (int j = 0; j < BLS_NW; ++j) {
-    uint64_t s = (uint64_t)t[j] + (BLS.p[j] & mask) + c;
-    r.w[j] = (uint32_t)s;
-    c = (uint32_t)(s >> 32);
-  }
+  mont_sub(r, a, b);
 }
-
 __device__ __forceinline__ void fp_neg(Fp& r, const Fp& a) {
   Fp z;
   fp_zero(z);
   fp_sub(r, z, a);
 }
-
 __device__ __forceinline__ void fp_dbl(Fp& r, const Fp& a) { fp_add(r, a, a); }
-
 // a^(p-2): Fermat inversion, 0 -> 0
-__device__ __noinline__ void fp_inv(Fp& r, const Fp& a) {
-  Fp acc;
-  fp_one(acc);
-  for (int i = BLS_NW * 32 - 1; i >= 0; --i) {
-    fp_sqr(acc, acc);
-    if ((BLS.p_minus_2[i >> 5] >> (i & 31)) & 1) fp_mul(acc, acc, a);
-  }
-  r = acc;
-}
-
-// boundary: (33,) int32 limbs, value v = x * 2^396 (lazy) -> x * 2^384
+__device__ __forceinline__ void fp_inv(Fp& r, const Fp& a) { mont_inv(r, a); }
+// (33,) int32 limbs, value x 2^396 (lazy) -> x 2^384
 __device__ __forceinline__ void load_fp(Fp& r, const int32_t* src) {
-  uint32_t w[BLS_NW + 1];
-#pragma unroll
-  for (int j = 0; j <= BLS_NW; ++j) w[j] = 0;
-  int64_t carry = 0;
-#pragma unroll
-  for (int k = 0; k < BLS_NL; ++k) {
-    int64_t v = (int64_t)src[k] + carry;
-    uint32_t d = (uint32_t)(v & 0xFFF);
-    carry = v >> 12;                       // arithmetic: floor
-    int bit = 12 * k, wi = bit >> 5, off = bit & 31;
-    w[wi] |= d << off;
-    if (off > 20) w[wi + 1] |= d >> (32 - off);
-  }
-  // v = lo + hi 2^384 + carry 2^396, lo < 2^384, hi < 2^12
-  Fp lo, hi, k;
-#pragma unroll
-  for (int j = 0; j < BLS_NW; ++j) lo.w[j] = w[j];
-  fp_zero(hi);
-  hi.w[0] = w[BLS_NW];
-  fp_from_const(k, BLS.c_lo);
-  fp_mul(r, lo, k);
-  fp_from_const(k, BLS.c_hi);
-  fp_mul(hi, hi, k);
-  fp_add(r, r, hi);
-  if (carry != 0) {
-    Fp c;
-    fp_zero(c);
-    c.w[0] = (uint32_t)(carry < 0 ? -carry : carry);
-    fp_from_const(k, BLS.c_top);
-    fp_mul(c, c, k);
-    if (carry < 0) fp_sub(r, r, c); else fp_add(r, r, c);
-  }
+  mont_load(r, src);
 }
-
-// x * 2^384 -> canonical limbs of x * 2^396 mod p
+// x 2^384 -> canonical limbs of x 2^396 mod p
 __device__ __forceinline__ void store_fp(int32_t* dst, const Fp& a) {
-  Fp k, b;
-  fp_from_const(k, BLS.c_out);
-  fp_mul(b, a, k);
-#pragma unroll
-  for (int i = 0; i < BLS_NL; ++i) {
-    int bit = 12 * i, wi = bit >> 5, off = bit & 31;
-    uint32_t v = wi < BLS_NW ? b.w[wi] >> off : 0;
-    if (off > 20 && wi + 1 < BLS_NW) v |= b.w[wi + 1] << (32 - off);
-    dst[i] = (int32_t)(v & 0xFFF);
-  }
+  mont_store(dst, a);
 }
 
 // --- Fp2 = Fp[u] / (u^2 + 1) ---------------------------------------------

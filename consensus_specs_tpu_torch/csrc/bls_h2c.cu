@@ -70,7 +70,7 @@ __device__ __noinline__ void draw_to_fp(Fp& r, const uint32_t* be) {
   fp_zero(hi);
 #pragma unroll
   for (int j = 0; j < 4; ++j) hi.w[j] = be[3 - j];
-  fp_from_const(k, BLS.c_top);
+  fp_from_const(k, BLS.f.c_top);
   fp_mul(r, lo, k);
   fp_mul(hi, hi, k);
   fp_mul(hi, hi, k);
@@ -105,14 +105,8 @@ __device__ __noinline__ void hash_to_field_elem(Fp2& u, const uint32_t msg[8],
 
 // --- square root and sgn0 ----------------------------------------------------
 
-__device__ __noinline__ void fp_pow_p14(Fp& r, const Fp& a) {
-  Fp acc;
-  fp_one(acc);
-  for (int i = BLS_NW * 32 - 1; i >= 0; --i) {
-    fp_sqr(acc, acc);
-    if ((H2C.p14[i >> 5] >> (i & 31)) & 1) fp_mul(acc, acc, a);
-  }
-  r = acc;
+__device__ __forceinline__ void fp_pow_p14(Fp& r, const Fp& a) {
+  mont_pow(r, a, H2C.p14);
 }
 
 __device__ __forceinline__ bool fp2_eq(const Fp2& a, const Fp2& b) {

@@ -27,6 +27,7 @@ from __future__ import annotations
 from . import ciphersuite as _py
 from . import curve as _curve
 from . import hash_to_curve as _h2c
+from .fields import R as _R
 
 bls_active = True
 _backend_name = "torch"
@@ -341,3 +342,45 @@ def multi_exp(points, integers):
                                        [int(i) for i in integers],
                                        device=_device))
     return _py.multi_exp(points, integers)
+
+
+class Scalar(int):
+    """BLS12-381 scalar-field element (mod r), the arithmetic the KZG
+    library runs on (JAX `ops/bls/__init__.py:343`; Deneb's
+    `BLSFieldElement` subclasses it)."""
+
+    _R = _R
+
+    def __new__(cls, value=0):
+        return super().__new__(cls, int(value) % cls._R)
+
+    def __add__(self, other):
+        return type(self)((int(self) + int(other)) % self._R)
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return type(self)((int(self) - int(other)) % self._R)
+
+    def __rsub__(self, other):
+        return type(self)((int(other) - int(self)) % self._R)
+
+    def __mul__(self, other):
+        return type(self)((int(self) * int(other)) % self._R)
+
+    __rmul__ = __mul__
+
+    def __neg__(self):
+        return type(self)(-int(self) % self._R)
+
+    def __truediv__(self, other):
+        return self * type(self)(int(other)).inverse()
+
+    def __rtruediv__(self, other):
+        return type(self)(int(other)) / self
+
+    def inverse(self):
+        return type(self)(pow(int(self), -1, self._R))
+
+    def pow(self, exp):
+        return type(self)(pow(int(self), int(exp), self._R))

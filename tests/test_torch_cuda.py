@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K14 (and K3's gather mode) against their
+"""The port's CUDA kernels K1-K18 (and K3's gather mode) against their
 plain PyTorch versions on the card, bit for bit (the BLS kernels at
 canonical values), at small shapes.  Every test here needs an NVIDIA
 GPU and nvcc; without a card they skip.  On the card, where JAX is not
@@ -170,6 +170,8 @@ def test_records_root_gather_kernel(dev):
 _BLS_KERNELS = ("bls_field_ops", "rlc_scalar_mul", "rlc_miller_product",
                 "final_exp_is_one", "hash_to_g2", "precomp_miller_product",
                 "msm_pippenger", "msm_double_add")
+_FR_KERNELS = ("fr_field_ops", "fr_barycentric", "fr_coset_interpolate",
+               "fr_fft")
 
 
 def test_incremental_step_on_the_card(dev):
@@ -181,7 +183,7 @@ def test_incremental_step_on_the_card(dev):
     _build.reset_launches()
     got = IncrementalEpochStep(MAINNET, reg, sc, leaves, dirty, device=dev)()
     assert all(v > 0 for k, v in _build.launches.items()
-               if k != "proof_paths" and k not in _BLS_KERNELS)
+               if k != "proof_paths" and k not in _BLS_KERNELS + _FR_KERNELS)
     want = IncrementalEpochStep(MAINNET, reg, sc, leaves, dirty, device=dev,
                                 plain=True)()
     assert all(torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, want))
@@ -407,3 +409,155 @@ def test_facade_eager_calls_and_multi_exp_on_the_card(dev):
     got = BLS.multi_exp(pts, list(range(1, 17)))
     assert _build.launches["msm_pippenger"] == 1
     assert BLS.eq(got, BLS.multiply(BLS.G1(), sum(range(1, 17))))
+
+
+# --- slice 5: the scalar field, KZG and DAS (K15-K18) ------------------------
+
+
+def _fr_rand(dev, n, seed):
+    import random
+
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+
+    r = random.Random(seed)
+    xs = [0, 1, FB.R_MODULUS - 1] + [r.randrange(FB.R_MODULUS)
+                                     for _ in range(n - 3)]
+    return torch.from_numpy(FB.FR.to_mont_batch(xs)).to(dev)
+
+
+@pytest.mark.parametrize("op", ["mul", "add", "sub", "inv", "pow", "canon"])
+def test_fr_field_ops_kernel(dev, op):
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+
+    a, b = _fr_rand(dev, 64, 1), _fr_rand(dev, 64, 2).flip(0)
+    if op == "canon":                          # signed-lazy limbs
+        a = torch.from_numpy(np.random.RandomState(4).randint(
+            -2**13, 2**13, (64, 33)).astype(np.int32)).to(dev)
+    two = op in ("mul", "add", "sub")
+    before = _build.launches["fr_field_ops"]
+    got = FB.field_op(op, a, b if two else None, 4096)
+    torch.cuda.synchronize()
+    assert _build.launches["fr_field_ops"] == before + 1
+    assert torch.equal(got, FB.field_op(op, a, b if two else None, 4096,
+                                        plain=True))
+
+
+@pytest.mark.parametrize("width,shift", [(64, 1), (64, 5), (4096, 1)])
+def test_fr_barycentric_kernel(dev, width, shift):
+    import random
+
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+
+    R = FB.R_MODULUS
+    g = pow(7, (R - 1) // width, R)
+    domain = [shift * pow(g, i, R) % R for i in range(width)]
+    rng = random.Random(width + shift)
+    poly = [rng.randrange(R) for _ in range(width)]
+    z = rng.randrange(R)
+    args = tuple(torch.from_numpy(a).to(dev) for a in FB.barycentric_inputs(
+        poly, domain, z, shift))
+    before = _build.launches["fr_barycentric"]
+    got = FB.barycentric(*args)
+    torch.cuda.synchronize()
+    assert _build.launches["fr_barycentric"] == before + 1
+    if width <= 64:
+        assert torch.equal(got, FB.FR.canon(FB.barycentric(*args,
+                                                           plain=True)))
+    want = FB.barycentric_eval(poly, domain, z, shift, device="cpu") \
+        if width <= 64 else None
+    got_int = FB.barycentric_eval(poly, domain, z, shift, device=dev)
+    assert want is None or got_int == want
+    assert FB.from_limbs(got) == [got_int]
+
+
+@pytest.mark.parametrize("n_cells", [3, 130])
+def test_fr_coset_interpolate_kernel(dev, n_cells):
+    import random
+
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+
+    R = FB.R_MODULUS
+    rng = random.Random(n_cells)
+    ev = [[rng.randrange(R) for _ in range(64)] for _ in range(n_cells)]
+    wt = [[rng.randrange(R) for _ in range(64)] for _ in range(n_cells)]
+    m = [[rng.randrange(R) for _ in range(64)] for _ in range(64)]
+    args = tuple(torch.from_numpy(a).to(dev) for a in
+                 FB.coset_interpolate_inputs(ev, m, wt))
+    before = _build.launches["fr_coset_interpolate"]
+    got = FB.coset_interpolate(*args)
+    torch.cuda.synchronize()
+    assert _build.launches["fr_coset_interpolate"] == before + 1
+    assert torch.equal(got, FB.FR.canon(FB.coset_interpolate(*args,
+                                                              plain=True)))
+    want = [sum(w[j] * sum(e[i] * m[i][j] for i in range(64))
+                for e, w in zip(ev, wt)) % R for j in range(64)]
+    assert FB.from_limbs(got) == want
+
+
+@pytest.mark.parametrize("n,batch,inverse", [(8, 2, False), (128, 2, True),
+                                             (4096, 1, True),
+                                             (8192, 1, False)])
+def test_fr_fft_kernel(dev, n, batch, inverse):
+    import random
+
+    from consensus_specs_tpu_torch.das import compute as DC
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+
+    R = FB.R_MODULUS
+    g = pow(7, (R - 1) // n, R)
+    roots = [pow(g, i, R) for i in range(n)]
+    rng = random.Random(n)
+    rows = [[rng.randrange(R) for _ in range(n)] for _ in range(batch)]
+    args = tuple(torch.from_numpy(a).to(dev)
+                 for a in FB.fft_inputs(rows, roots, inverse))
+    before = _build.launches["fr_fft"]
+    got = FB.fft(*args)
+    torch.cuda.synchronize()
+    assert _build.launches["fr_fft"] == before + 1
+    assert torch.equal(got, FB.FR.canon(FB.fft(*args, plain=True)))
+    host = DC._ifft if inverse else DC._fft
+    assert FB.fr_fft(rows, roots, inverse, device=dev) == \
+        [host(r, roots) for r in rows]
+
+
+def test_kzg_das_and_cells_on_the_card(dev):
+    """The three slice-5 paths at small size through the facade's default
+    device: a Deneb KZG verify (K16, K12 -> K10), a DAS batch verify
+    (K17, K13, K12 -> K10) and its isolation, `evaluate_cells_at` (K16)
+    and `compute_cells` (K18)."""
+    from consensus_specs_tpu_torch import convert as C
+    from consensus_specs_tpu_torch import das as D
+    from consensus_specs_tpu_torch.models.deneb import \
+        polynomial_commitments as P
+    from consensus_specs_tpu_torch.ops.bls import curve as Cv
+
+    R = P.BLS_MODULUS
+    roots = [int(r) for r in P.bit_reversal_permutation(
+        P.compute_roots_of_unity(P.FIELD_ELEMENTS_PER_BLOB))]
+    blob = b"".join(int.to_bytes((5 * x + 7) % R, 32, "big") for x in roots)
+    s0, s1 = (Cv.g1_from_bytes(P.KZG_SETUP_G1_MONOMIAL[i]) for i in (0, 1))
+    com = Cv.g1_to_bytes(Cv.g1.add(Cv.g1.mul(s1, 5), Cv.g1.mul(s0, 7)))
+    proof = Cv.g1_to_bytes(Cv.g1.mul(s0, 5))
+    _build.reset_launches()
+    assert P.verify_blob_kzg_proof_batch([blob], [com], [proof]) is True
+    assert _build.launches["fr_barycentric"] == 1
+    assert P.verify_blob_kzg_proof_batch([blob], [com],
+                                         [Cv.g1_to_bytes(s0)]) is False
+
+    com_b, idx, cells, proofs = D.closed_form_matrix(2, columns=[0, 3, 64,
+                                                                 127])
+    _build.reset_launches()
+    assert D.verify_cell_proof_batch(com_b, idx, cells, proofs) is True
+    assert _build.launches["fr_coset_interpolate"] == 1
+    assert _build.launches["msm_pippenger"] == 3
+    bad = list(cells)
+    bad[2] = bad[2][:-32] + int.to_bytes(7, 32, "big")
+    assert D.verify_and_isolate(com_b, idx, bad, proofs) == \
+        (False, [k != 2 for k in range(8)])
+    z = 0xFEEDFACE
+    assert D.evaluate_cells_at(cells[:2], idx[:2], z) == \
+        D.evaluate_cells_at(cells[:2], idx[:2], z, device=False)
+    blob, true_cells, _, _ = C.closed_form_blob()
+    _build.reset_launches()
+    assert D.compute_cells(blob) == true_cells
+    assert _build.launches["fr_fft"] == 2

@@ -157,7 +157,10 @@ def test_port_modules_import_without_jax():
             "consensus_specs_tpu_torch.convert, "
             "consensus_specs_tpu_torch.parallel.incremental, "
             "consensus_specs_tpu_torch.ops.bls, "
-            "consensus_specs_tpu_torch.ops.bls_batch; "
+            "consensus_specs_tpu_torch.ops.bls_batch, "
+            "consensus_specs_tpu_torch.ops.fr_batch, "
+            "consensus_specs_tpu_torch.models.deneb.polynomial_commitments, "
+            "consensus_specs_tpu_torch.das; "
             "bad = [m for m in set(sys.modules) - before if m == 'jax' "
             "or m.startswith('jax.') or m == 'consensus_specs_tpu' "
             "or m.startswith('consensus_specs_tpu.')]; "
