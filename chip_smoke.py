@@ -7,7 +7,7 @@ from the root of the repository, on a machine with one CUDA card, nvcc
 and PyTorch built for CUDA.  The script:
 
 1. prints the card's name and power limit;
-2. builds the kernels K1-K18 from `consensus_specs_tpu_torch/csrc/` (one
+2. builds the kernels K1-K20 from `consensus_specs_tpu_torch/csrc/` (one
    nvcc per source, all started together) into the git-ignored
    `consensus_specs_tpu_torch/_build/`;
 3. runs each kernel and its plain PyTorch version on the card, on the
@@ -70,7 +70,24 @@ and PyTorch built for CUDA.  The script:
    through K18 (n = 4096 inverse, n = 8192 forward): its 128 cells equal
    to the closed form and the host FFT route, K18 equal to its plain
    version at both sizes;
-14. prints each phase's seconds, one JSON line of the kernels held, then,
+14. slice 6, the G1 FFT: K19 (`g1_fft`) against its plain version at the
+   FK20 setup shape (64, 128) forward on the trusted setup's residue
+   vectors and at (1, 128) inverse (which must come back to the setup
+   points), at n = 8 against the naive evaluation and the round trip;
+   K18 at batch 64, n = 128 and K20 (`fk20_hext`) at (64, 128) on the
+   setup tables and a dense blob's digits against their plain versions;
+15. fulu `compute_cells_and_kzg_proofs` by FK20 on the closed-form
+   degree-65 blob (K18, K15, K20, K19 x 2): cells and proofs equal to
+   the closed form, the cold call (the setup tables built by one K19)
+   and the warm median with the device split; on `bench.py` worker_kzg's
+   dense blob 0, all 128 cells and proofs accepted by
+   `verify_cell_proof_batch` as one batch, a swapped proof rejected,
+   columns 0 and 77 equal to `cell_proof_for_column` (K14 at 4032);
+16. `recover_cells_and_kzg_proofs` from the 64 even cells of both blobs
+   (the decode on K18 and K15, the re-evaluation, the FK20 re-prove):
+   byte-equal to the closed form and the producer's output, cold and
+   warm times with the split; 63 cells and a duplicate index rejected;
+17. prints each phase's seconds, one JSON line of the kernels held, then,
    last, the result line `{"ok": true, "device": {...}}`.
 
 Every phase is fatal: any failure raises and the script exits non-zero
@@ -111,7 +128,7 @@ BLS_TASKS = 128
 BLS_COMMITTEE = 64
 BLS_SEED_BASE = 1000
 BLS_RNG_SEED = 0
-BLS_TIMED = 5
+BLS_TIMED = 3
 BLS_FIELD_N = 1024
 # slice 4: config #3 (bench_bls.py's one 512-member sync-committee
 # statement, seed base 2000) and the MSM probe sizes
@@ -125,10 +142,13 @@ KZG_BLOBS = 6
 KZG_TIMED = 5
 DAS_BLOBS = 8
 DAS_COLUMNS = 128
-DAS_TIMED = 3
+DAS_TIMED = 2
 DAS_SUB = 16
 DAS_BAD = 5
 FR_FIELD_N = 1024
+# slice 6: the producer's and the recovery's warm repeats
+DAS_PRODUCER_TIMED = 3
+DAS_RECOVER_TIMED = 3
 # an Fr Montgomery product over 8 32-bit words: 2 x 64 multiply-adds of
 # two 32-bit instructions each; an inversion by r - 2 is 254 squarings
 # and 163 products
@@ -1852,6 +1872,371 @@ def compute_cells_path(dev, record, int32_ops_per_s):
     return counts
 
 
+# --- slice 6: the G1 FFT, FK20, the PeerDAS producer and recovery ------------
+
+def _same_points(name, got, plain) -> int:
+    """A K19/K20 output against the plain version's: canonical coordinates
+    equal where Z != 0, the Z = 0 flag equal elsewhere (masked lanes carry
+    stale x and y)."""
+    import torch
+
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+
+    gx, gy, gz = got
+    px, py, pz = (F.fq_canon(c) for c in plain)
+    inf = (pz == 0).all(-1)
+    require_equal(f"{name} (Z = 0 lanes)", (gz == 0).all(-1), inf)
+    live = ~inf
+    return max(require_equal(f"{name} ({c})", g[live], p[live])
+               for c, g, p in (("x", gx, px), ("y", gy, py), ("z", gz, pz)))
+
+
+def g1fft_products(n: int, batch: int, inverse: bool) -> int:
+    """K19's Montgomery products for one (batch, n) transform, counted
+    from what the twiddles need: per butterfly lane with twiddle k > 1,
+    the 14 table entries (7 doublings of 7 products, 7 additions of 16),
+    bit_length(k) - 4 doublings past the leading window and an addition
+    per nonzero window after it; the two butterfly additions; for the
+    inverse, the scale by 1/n (bit_length - 1 doublings, popcount - 1
+    additions) on every point."""
+    from consensus_specs_tpu_torch.ops.bls_batch import g1fft as G
+
+    dbl, add = 7, 16
+    _, _, digits = G._stage_plan(n, inverse)
+    total = 0
+    for row in digits.reshape(-1, digits.shape[-1]):
+        nz = np.flatnonzero(row).tolist()
+        if nz and not (len(nz) == 1 and row[nz[0]] == 1
+                       and nz[0] == len(row) - 1):
+            total += 7 * dbl + 7 * add
+            total += 4 * (len(row) - 1 - nz[0]) * dbl + (len(nz) - 1) * add
+        total += 2 * add
+    total *= batch
+    if inverse:
+        inv_n = pow(n, G.R_MODULUS - 2, G.R_MODULUS)
+        total += batch * n * ((inv_n.bit_length() - 1) * dbl
+                              + (bin(inv_n).count("1") - 1) * add)
+    return total
+
+
+def hext_products(digits) -> int:
+    """K20's Montgomery products for these digits (R, width, 64): each
+    position's window-4 Pippenger, counted as K13's
+    (`pippenger_products`)."""
+    return sum(pippenger_products(digits[:, j, :], 4)
+               for j in range(digits.shape[1]))
+
+
+def check_g1fft_kernels(dev, record, int32_ops_per_s):
+    """K19 against its plain version on the card at the setup shape (64,
+    128), forward, on the trusted setup's residue vectors, and at (1,
+    128) inverse on the first transformed row (which must come back to
+    the setup points); at n = 8 against the naive per-point evaluation
+    and the round trip.  K20 against its plain version at (64, 128) on
+    the setup tables and the dense blob's digits, K18 at batch 64, n =
+    128 against its plain version on the way."""
+    import torch
+
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch import convert as CV
+    from consensus_specs_tpu_torch.das import ciphersuite as cs
+    from consensus_specs_tpu_torch.das import compute as DC
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+    from consensus_specs_tpu_torch.ops.bls.curve import g1
+    from consensus_specs_tpu_torch.ops.bls_batch import g1fft as G
+    from consensus_specs_tpu_torch.ops.bls_batch.curve import \
+        scalars_to_digits
+
+    L, KK, N = DC.L, DC.K, DC.N_EXT
+    t0 = time.perf_counter()
+    limbs = [G.points_to_limbs([cs.setup_g1_point(c + L * v)
+                                for v in range(KK)], pad_to=N)
+             for c in range(L)]
+    x, y, z = (torch.from_numpy(np.stack([lb[i] for lb in limbs])).to(dev)
+               for i in range(3))
+    print(f"g1 fft inputs: the {L} x {KK} setup residue vectors padded to "
+          f"{N}, parsed in {time.perf_counter() - t0:.3f} s")
+    perm = torch.tensor(G._bitrev_perm(N), device=dev)
+    fwd_args = tuple(c[:, perm].contiguous() for c in (x, y, z))
+    _build.reset_launches()
+    k19 = G.fft(*fwd_args)
+    torch.cuda.synchronize()
+    if _build.launches["g1_fft"] != 1:
+        raise AssertionError("K19 did not launch")
+    t0 = time.perf_counter()
+    p19 = G.fft(*fwd_args, plain=True)
+    torch.cuda.synchronize()
+    plain_fwd = (time.perf_counter() - t0) * 1e3
+    err = _same_points(f"g1_fft ({L}, {N}) forward", k19, p19)
+    fwd_ms = device_ms(lambda: G.fft(*fwd_args), 3)
+
+    inv_args = tuple(c[:1][:, perm].contiguous() for c in k19)
+    k19i = G.fft(*inv_args, inverse=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p19i = G.fft(*inv_args, inverse=True, plain=True)
+    torch.cuda.synchronize()
+    plain_inv = (time.perf_counter() - t0) * 1e3
+    err = max(err, _same_points(f"g1_fft (1, {N}) inverse", k19i, p19i))
+    back = G.limbs_to_oracle_list(k19i)
+    for v in range(N):
+        want = (cs.setup_g1_point(L * v) if v < KK else g1.infinity())
+        if not g1.eq_points(back[v], want):
+            raise AssertionError(f"g1_fft: the round trip of residue 0 "
+                                 f"differs at {v}")
+    inv_ms = device_ms(lambda: G.fft(*inv_args, inverse=True), 3)
+    one_fwd = tuple(c[:1].contiguous() for c in fwd_args)
+    one_ms = device_ms(lambda: G.fft(*one_fwd), 3)
+
+    # n = 8: the naive evaluation and the round trip, through the kernel
+    row = [g1.mul(cs.setup_g1_point(0), 3 + i) for i in range(6)]
+    row += [g1.infinity()] * 2
+    out = G.g1_fft(row, device=dev)
+    dom = G.fft_domain(8)
+    for i in range(8):
+        want = g1.infinity()
+        for j, pt in enumerate(row):
+            want = g1.add(want, g1.mul(pt, dom[(i * j) % 8]))
+        if not g1.eq_points(out[i], want):
+            raise AssertionError(f"g1_fft n=8: output {i} differs from the "
+                                 "naive evaluation")
+    back8 = G.g1_fft(out, inverse=True, device=dev)
+    if not all(g1.eq_points(a, b) for a, b in zip(back8, row)):
+        raise AssertionError("g1_fft n=8: ifft(fft(x)) != x")
+
+    # -- K20 on the setup tables and the dense blob's digits; K18 at 64 x 128
+    tables = k19
+    blob = CV.kzg_blobs(1)[0]
+    coeffs = DC._coeff_limbs(DC.poly_coefficients(blob, device=dev), dev)
+    padded = torch.cat([coeffs, torch.zeros_like(coeffs[:1])])
+    rows = padded[DC._fk20_row_index(L, KK, N, DC.M, dev)]
+    brp, roots, scale = DC._domain_consts(N, False, dev)
+    k18_args = (rows[:, brp].contiguous(), roots, scale)
+    k18 = FB.fft(*k18_args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p18 = FB.fft(*k18_args, plain=True)
+    torch.cuda.synchronize()
+    plain18 = (time.perf_counter() - t0) * 1e3
+    require_equal(f"fr_fft ({L}, {N})", k18, FB.FR.canon(p18))
+    k18_ms = device_ms(lambda: FB.fft(*k18_args), 5)
+    raw_one = torch.from_numpy(FB.FR.int_to_limbs(1)).to(dev)
+    digits = G.limb_digits(FB.field_op(
+        "mul", k18, raw_one.expand(k18.shape).contiguous()))
+    host_digits = scalars_to_digits(FB.from_limbs(k18), 255, 4)
+    if not np.array_equal(digits.cpu().numpy().reshape(-1, 64), host_digits):
+        raise AssertionError("the device digits differ from the host's")
+    k20 = G.hext(*tables, digits)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p20 = G.hext(*tables, digits, plain=True)
+    torch.cuda.synchronize()
+    plain20 = (time.perf_counter() - t0) * 1e3
+    err20 = _same_points(f"fk20_hext ({L}, {N})", k20, p20)
+    k20_ms = device_ms(lambda: G.hext(*tables, digits), 3)
+
+    fwd_products = g1fft_products(N, L, False)
+    inv_products = g1fft_products(N, 1, True)
+    one_products = g1fft_products(N, 1, False)
+    h_products = hext_products(digits.cpu().numpy())
+    to_ms = OPS_PER_MONT / int32_ops_per_s * 1e3
+    print(f"g1 fft kernels: K19 ({L}, {N}) forward {fwd_ms:.6f} ms (plain "
+          f"{plain_fwd:.3f} ms), (1, {N}) inverse {inv_ms:.6f} ms (plain "
+          f"{plain_inv:.3f} ms, round trip to the setup points), (1, {N}) "
+          f"forward {one_ms:.6f} ms; n=8 equal to the naive evaluation and "
+          f"round-trips; K18 ({L}, {N}) {k18_ms:.6f} ms (plain "
+          f"{plain18:.3f} ms); K20 ({L}, {N}) {k20_ms:.6f} ms (plain "
+          f"{plain20:.3f} ms); products: K19 {fwd_products} / "
+          f"{inv_products} / {one_products}, K20 {h_products}; all equal "
+          f"to the plain versions")
+    record("g1_fft", "consensus_specs_tpu_torch/csrc/g1_fft.cu",
+           "consensus_specs_tpu/ops/bls_batch/g1fft_jax.py:161", err,
+           inv_ms, plain_inv, inv_products * to_ms, "operations",
+           montgomery_products=inv_products,
+           shape=f"(1, {N}) inverse, the FK20 chain's first G1 transform",
+           forward_ms=one_ms, forward_bound_ms=one_products * to_ms,
+           forward_shape=f"(1, {N}) forward",
+           setup_ms=fwd_ms, setup_plain_ms=plain_fwd,
+           setup_bound_ms=fwd_products * to_ms,
+           setup_shape=f"({L}, {N}) forward, the setup tables (once)",
+           replaces_also=["consensus_specs_tpu/ops/bls_batch/"
+                          "g1fft_jax.py:130",
+                          "consensus_specs_tpu/ops/bls_batch/"
+                          "g1fft_jax.py:257"])
+    record("fk20_hext", "consensus_specs_tpu_torch/csrc/g1_fft.cu",
+           "consensus_specs_tpu/ops/bls_batch/g1fft_jax.py:202", err20,
+           k20_ms, plain20, h_products * to_ms, "operations",
+           montgomery_products=h_products,
+           shape=f"({L} residues, {N} positions), the dense blob's digits",
+           replaces_also=["consensus_specs_tpu/ops/bls_batch/"
+                          "g1fft_jax.py:314"])
+    return {"fr_fft_64x128": (k18_ms, plain18)}
+
+
+def _fk20_wrappers():
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+    from consensus_specs_tpu_torch.ops.fr_batch import kernels as FK
+
+    return [(FK, "fft_kernel"), (FK, "field_op_kernel"),
+            (K, "g1_fft_kernel"), (K, "fk20_hext_kernel")]
+
+
+def producer_path(dev):
+    """`compute_cells_and_kzg_proofs` (FK20) on `bench.py:787-797`'s
+    closed-form degree-65 blob: the cold call (the setup tables built
+    first) and the median of DAS_PRODUCER_TIMED warm calls, the split
+    into setup, K18, K15, K20, K19 and host, cells and proofs equal to
+    the closed form.  Then the dense blob 0 of `bench.py` worker_kzg: all
+    128 cells and proofs accepted by `verify_cell_proof_batch` as one
+    batch, the proofs of columns 0 and 77 equal to
+    `cell_proof_for_column` (K14 at 4032 points), one swapped proof
+    rejected."""
+    import torch
+
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch import convert as CV
+    from consensus_specs_tpu_torch import das as D
+    from consensus_specs_tpu_torch.das import compute as DC
+    from consensus_specs_tpu_torch.models.deneb import \
+        polynomial_commitments as P
+
+    blob, cells, proofs, _ = CV.closed_form_blob()
+    DC._fk20_setup_tables.cache_clear()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    got = D.compute_cells_and_kzg_proofs(blob)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    cold_counts = read_launches("das producer (cold)")
+    if got != (cells, proofs):
+        raise AssertionError("the producer's cells or proofs differ from "
+                             "the closed form")
+    DC._fk20_setup_tables.cache_clear()
+    t0 = time.perf_counter()
+    DC._fk20_setup_tables(dev)
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    if D.compute_cells_and_kzg_proofs(blob) != (cells, proofs):
+        raise AssertionError("the warm producer call differs")
+    torch.cuda.synchronize()
+    main_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_launches("das producer")
+    for name, want in (("fk20_hext", 1), ("g1_fft", 2)):
+        if counts.get(name, 0) != want:
+            raise AssertionError(f"the producer launched {name} "
+                                 f"{counts.get(name, 0)} times")
+    warm = [main_ms]
+    for _ in range(DAS_PRODUCER_TIMED - 1):
+        t0 = time.perf_counter()
+        D.compute_cells_and_kzg_proofs(blob)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    per = kernel_device_ms(lambda: D.compute_cells_and_kzg_proofs(blob),
+                           _fk20_wrappers())
+    device_total = sum(per.values())
+    wall = statistics.median(warm)
+    print(f"das producer compute_cells_and_kzg_proofs (closed-form "
+          f"degree-65 blob, FK20): cold_ms={cold_ms:.4f} (setup tables "
+          f"{setup_ms:.4f} ms) warm median_ms={wall:.4f} min_ms="
+          f"{min(warm):.4f} max_ms={max(warm):.4f} device_ms="
+          f"{device_total:.6f} (CUDA events around each launch in one "
+          f"call: " + ", ".join(f"{k} {v:.6f}" for k, v in per.items())
+          + f") host_ms={wall - device_total:.4f} proofs_per_s="
+          f"{128 / wall * 1e3:.3f}; cells and proofs equal the closed form")
+
+    # -- the dense blob: verify, the column route, a swapped proof -------------
+    dense = CV.kzg_blobs(1)[0]
+    t0 = time.perf_counter()
+    d_cells, d_proofs = D.compute_cells_and_kzg_proofs(dense)
+    torch.cuda.synchronize()
+    dense_ms = (time.perf_counter() - t0) * 1e3
+    com = bytes(P.blob_to_kzg_commitment(dense))
+    idx = list(range(128))
+    t0 = time.perf_counter()
+    if D.verify_cell_proof_batch([com] * 128, idx, d_cells,
+                                 d_proofs) is not True:
+        raise AssertionError("the dense blob's cells and proofs were "
+                             "rejected")
+    verify_s = time.perf_counter() - t0
+    swapped = list(d_proofs)
+    swapped[0], swapped[1] = swapped[1], swapped[0]
+    if D.verify_cell_proof_batch([com] * 128, idx, d_cells,
+                                 swapped) is not False:
+        raise AssertionError("a swapped proof was accepted")
+    for k in (0, 77):
+        if D.cell_proof_for_column(dense, k) != d_proofs[k]:
+            raise AssertionError(f"the dense blob's proof {k} differs from "
+                                 "cell_proof_for_column's")
+    print(f"das producer (dense blob 0 of worker_kzg): {dense_ms:.4f} ms; "
+          f"128 cells and proofs accepted by verify_cell_proof_batch in one "
+          f"batch ({verify_s:.3f} s), a swapped proof rejected; columns 0 "
+          f"and 77 equal cell_proof_for_column (K14 at 4032 points)")
+    return counts, cold_counts, (dense, d_cells, d_proofs)
+
+
+def recovery_path(dense):
+    """`recover_cells_and_kzg_proofs` from the 64 even cells (the worst
+    recoverable case, as `bench.py:834`) of the closed-form and the dense
+    blob: cells and proofs equal to the closed form and the producer's,
+    cold and warm times with the split into decode, re-evaluation and
+    re-prove; 63 cells and a duplicate index rejected."""
+    import torch
+
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch import convert as CV
+    from consensus_specs_tpu_torch import das as D
+
+    blob, cells, proofs, _ = CV.closed_form_blob()
+    _, d_cells, d_proofs = dense
+    keep = list(range(0, 128, 2))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    got = D.recover_cells_and_kzg_proofs(keep, [cells[k] for k in keep])
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_launches("das recovery")
+    if got != (cells, proofs):
+        raise AssertionError("recovery of the closed-form blob differs")
+    for name in ("fr_fft", "fr_field_ops", "fk20_hext", "g1_fft"):
+        if not counts.get(name):
+            raise AssertionError(f"the recovery never launched {name}")
+    walls, splits = [], []
+    for _ in range(DAS_RECOVER_TIMED):
+        tr = {}
+        t0 = time.perf_counter()
+        got = D.recover_cells_and_kzg_proofs(
+            keep, [d_cells[k] for k in keep], trace=tr)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        splits.append(tr["seconds"])
+        if got != (d_cells, d_proofs):
+            raise AssertionError("recovery of the dense blob differs from "
+                                 "the producer's output")
+    for bad_idx in (keep[:63], keep[:1] + keep[:63]):
+        try:
+            D.recover_cells_and_kzg_proofs(bad_idx,
+                                           [cells[k] for k in bad_idx])
+        except AssertionError:
+            continue
+        raise AssertionError(f"recovery accepted {len(bad_idx)} cells with "
+                             f"{len(set(bad_idx))} distinct indices")
+    split = {k: statistics.median(s[k] for s in splits) * 1e3
+             for k in splits[0]}
+    print(f"das recovery recover_cells_and_kzg_proofs (64 even cells): "
+          f"cold_ms={cold_ms:.4f} warm median_ms={statistics.median(walls):.4f}"
+          f" min_ms={min(walls):.4f} max_ms={max(walls):.4f} split_median_ms "
+          + json.dumps({k: round(v, 4) for k, v in split.items()})
+          + "; both blobs equal to the closed form and the producer's "
+          "output; 63 cells and a duplicate index rejected")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2095,6 +2480,20 @@ def main() -> int:
     phase("das verify")
     cells_counts = compute_cells_path(dev, record, int32_ops_per_s)
     phase("compute_cells")
+    # -- slice 6: the G1 FFT and FK20, the PeerDAS producer and recovery -----
+    k18_fk20 = check_g1fft_kernels(dev, record, int32_ops_per_s)
+    phase("g1 fft kernels")
+    producer_counts, producer_cold_counts, dense = producer_path(dev)
+    phase("das producer")
+    recovery_counts = recovery_path(dense)
+    phase("das recovery")
+    k18_ms, k18_plain = k18_fk20["fr_fft_64x128"]
+    k18_products = 64 * (128 // 2) * 7
+    k18_bms, _ = fr_bound(k18_products, (2 * 64 * 128 + 64 + 1) * 132,
+                          int32_ops_per_s)
+    kernels["fr_fft"].update(fk20_ms=k18_ms, fk20_plain_ms=k18_plain,
+                             fk20_bound_ms=k18_bms,
+                             fk20_shape="batch 64, n=128 forward (FK20)")
 
     paths = {"full_step": full_counts, "incremental_step": incr_counts,
              "proofs": proof_counts, "bls_batch_h2c": h2c_counts,
@@ -2102,24 +2501,28 @@ def main() -> int:
              "pairing_check": check_counts,
              "facade_fast_aggregate_verify": fav_counts, **msm_counts,
              "kzg_setup": kzg_setup_counts, "kzg_verify": kzg_counts,
-             "das_verify": das_counts, "compute_cells": cells_counts}
-    # K7 and K15 hold the field layers (rows 7-8, row 14); no path runs them
+             "das_verify": das_counts, "compute_cells": cells_counts,
+             "das_producer": producer_counts,
+             "das_producer_cold": producer_cold_counts,
+             "das_recovery": recovery_counts}
+    # K7 holds the Fq layer (rows 7-8) and runs on no path; K15 holds the
+    # Fr layer (row 14) and runs on the producer's and the recovery's paths
     field_checks = {"bls_field_ops": field_counts, "fr_field_ops": fr_counts}
+    main_path = ("incremental_step", "full_step", "bls_batch_h2c",
+                 "pairing_check", f"msm_{MSM_SIZES[1]}", f"msm_{MSM_SIZES[2]}",
+                 "proofs", "kzg_verify", "das_verify", "compute_cells",
+                 "das_producer", "das_recovery")
     for k in kernels.values():
-        by = {p: c[k["name"]] for p, c in paths.items() if c.get(k["name"])}
-        if k["name"] in field_checks:
-            k["launches_by_path"] = {
-                "field_checks": field_checks[k["name"]][k["name"]]}
-            k["launches"] = 0
-            continue
+        name = k["name"]
+        by = {p: c[name] for p, c in paths.items() if c.get(name)}
+        if name in field_checks:
+            by["field_checks"] = field_checks[name][name]
         if not by:
-            raise AssertionError(f"no path launched kernel {k['name']}")
+            raise AssertionError(f"no path launched kernel {name}")
         k["launches_by_path"] = by
-        main_path = ("incremental_step", "full_step", "bls_batch_h2c",
-                     "pairing_check", f"msm_{MSM_SIZES[1]}",
-                     f"msm_{MSM_SIZES[2]}", "proofs", "kzg_verify",
-                     "das_verify", "compute_cells")
-        k["launches"] = next(by[p] for p in main_path if by.get(p))
+        k["launches"] = next((by[p] for p in main_path if by.get(p)), 0)
+        if not k["launches"] and name != "bls_field_ops":
+            raise AssertionError(f"no main path launched kernel {name}")
 
     for k in kernels.values():
         print(f"kernel {k['name']}: launches={k['launches']} "

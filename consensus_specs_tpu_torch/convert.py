@@ -142,6 +142,20 @@ def fr_ints_to_torch(xs, device="cuda") -> torch.Tensor:
     return fr_limbs_to_torch(FR.to_mont_batch([int(x) for x in xs]), device)
 
 
+def g1_limbs_to_torch(x, y, z, device="cuda"):
+    """JAX Jacobian G1 limb stacks (numpy int32 (..., 33) each, Fq
+    Montgomery R = 2**396, infinity Z = 0; e.g. JAX's
+    `_fk20_setup_tables()`) -> the port's (x, y, z) tensors on `device`,
+    the same limbs."""
+    dev = resolve_device(device)
+    out = []
+    for c in (x, y, z):
+        a = np.ascontiguousarray(np.asarray(c), dtype=np.int32)
+        assert a.shape[-1] == 33
+        out.append(torch.from_numpy(a).to(dev))
+    return tuple(out)
+
+
 def kzg_blobs(n: int = 6) -> list[bytes]:
     """Config #5's blobs, the recipe of `bench.py:1112 worker_kzg`: field
     element j of blob i is (2 + i)^(j + 256) mod r, 4096 elements of 32

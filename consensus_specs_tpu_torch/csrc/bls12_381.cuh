@@ -398,9 +398,11 @@ __device__ __forceinline__ void pt_infinity(Jac<F>& r) {
   f_zero(r.z);
 }
 
-// dbl-2007-bl; Z = 0 and Y = 0 both land on Z3 = 0
+// dbl-2007-bl; Z = 0 and Y = 0 both land on Z3 = 0.  pt_add's doubling
+// branch inlines this body: as a nested call to the non-inlined pt_double
+// it faulted (illegal address) in the G1 FFT's butterfly rounds on sm_90a.
 template <class F>
-__device__ __noinline__ void pt_double(Jac<F>& r, const Jac<F>& p) {
+__device__ __forceinline__ void pt_double_body(Jac<F>& r, const Jac<F>& p) {
   F A, B, C, D, E, Fv, t, u;
   f_sqr(A, p.x);
   f_sqr(B, p.y);
@@ -429,6 +431,11 @@ __device__ __noinline__ void pt_double(Jac<F>& r, const Jac<F>& p) {
   r.z = Z3;
 }
 
+template <class F>
+__device__ __noinline__ void pt_double(Jac<F>& r, const Jac<F>& p) {
+  pt_double_body(r, p);
+}
+
 // add-2007-bl; equal inputs double, opposite inputs give infinity, an
 // infinite input gives the other (in curve_jax.pt_add's order of selects)
 template <class F>
@@ -449,7 +456,7 @@ __device__ __noinline__ void pt_add(Jac<F>& r, const Jac<F>& p,
   f_sub(H, U2, U1);
   f_sub(rr, S2, S1);
   if (f_is_zero(H)) {
-    if (f_is_zero(rr)) pt_double(r, p);
+    if (f_is_zero(rr)) pt_double_body(r, p);
     else pt_infinity(r);
     return;
   }

@@ -74,6 +74,11 @@ def pt_infinity(F: FieldOps, like):
     return (one, one, torch.zeros_like(like[0]))
 
 
+def pt_neg(F: FieldOps, p):
+    """-P = (X, -Y, Z) (JAX `curve_jax.py:87`)."""
+    return (p[0], F.neg(p[1]), p[2])
+
+
 def pt_select(F: FieldOps, mask, p, q):
     m = F.expand(mask)
     return tuple(torch.where(m, a, b) for a, b in zip(p, q))

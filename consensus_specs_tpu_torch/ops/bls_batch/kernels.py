@@ -1,7 +1,7 @@
-"""Wrappers of the BLS kernels K7-K14, one shared library per source:
-`csrc/bls_rlc.cu` (K7-K10), `bls_h2c.cu` (K11), `bls_pairing.cu` (K12)
-and `bls_msm.cu` (K13, K14), all over the device arithmetic of
-`csrc/bls12_381.cuh`.
+"""Wrappers of the BLS kernels K7-K14, K19 and K20, one shared library
+per source: `csrc/bls_rlc.cu` (K7-K10), `bls_h2c.cu` (K11),
+`bls_pairing.cu` (K12), `bls_msm.cu` (K13, K14) and `g1_fft.cu` (K19,
+K20), all over the device arithmetic of `csrc/bls12_381.cuh`.
 
 Each wrapper takes and returns the port's boundary format (JAX's
 (..., 33) int32 limbs, R = 2**396; outputs canonical), checks its inputs,
@@ -111,12 +111,17 @@ _SIGNATURES = {
         "msm_pippenger_launch": [_p] * 3 + [_i32] * 3 + [_p] * 3,
         "msm_double_add_launch": [_p] * 4 + [_i32] * 2 + [_p] * 3,
     },
+    "g1_fft": {
+        "g1_fft_launch": [_p] * 3 + [_i32] * 3 + [_p] * 4 + [_i32]
+        + [_p] * 3,
+        "fk20_hext_launch": [_p] * 4 + [_i32] * 2 + [_p] * 2,
+    },
 }
 # scratch-size functions: name -> argument count (all int)
 _SCRATCH = {"rlc_miller_scratch_bytes": 1, "h2c_scratch_bytes": 1,
             "precomp_miller_scratch_bytes": 1,
             "msm_pippenger_scratch_bytes": 3,
-            "msm_double_add_scratch_bytes": 1}
+            "msm_double_add_scratch_bytes": 1, "g1_fft_scratch_bytes": 2}
 
 
 @functools.cache
@@ -435,4 +440,67 @@ def msm_double_add_kernel(x, y, bits, mask):
         B, scratch.data_ptr(), out.data_ptr(), _build.stream_ptr(x)),
         "msm_double_add")
     _build.launches["msm_double_add"] += 1
+    return tuple(out)
+
+
+# --- K19 and K20 -------------------------------------------------------------
+
+
+def g1_fft_kernel(x, y, z, u_idx, v_idx, digits, inv_bits):
+    """K19: the G1 FFT of each row of the Jacobian points (x, y, z), each
+    (B, n, 33) in bit-reversed order: the butterfly rounds of the plan
+    (u_idx, v_idx (rounds, n/2) int32; digits (rounds, n/2, 64) int32
+    twiddle windows, most significant first), then, if `inv_bits`
+    ((nbits,) int32, most significant first) is not empty, the fixed
+    scalar multiply by it.  Natural-order (X, Y, Z), each (B, n, 33)
+    canonical."""
+    B, n = x.shape[0], x.shape[1]
+    if B < 1 or n < 2 or n & (n - 1):
+        raise ValueError(f"g1_fft: batch {B}, n {n}")
+    rounds = n.bit_length() - 1
+    for name, t, shape in (("x", x, (B, n, 33)), ("y", y, (B, n, 33)),
+                           ("z", z, (B, n, 33)),
+                           ("u_idx", u_idx, (rounds, n // 2)),
+                           ("v_idx", v_idx, (rounds, n // 2)),
+                           ("digits", digits, (rounds, n // 2, 64))):
+        _limbs(name, t, shape)
+    if inv_bits.dtype != torch.int32 or inv_bits.dim() != 1:
+        raise ValueError("g1_fft: inv_bits must be int32 (nbits,)")
+    dev = x.device
+    lib = lib_for(dev, "g1_fft")
+    scratch = torch.empty(int(lib.g1_fft_scratch_bytes(B, n)),
+                          dtype=torch.uint8, device=dev)
+    out = torch.empty((3, B, n, 33), dtype=torch.int32, device=dev)
+    bits = inv_bits if inv_bits.numel() else digits
+    _build.require_cuda("g1_fft", x, y, z, u_idx, v_idx, digits, bits,
+                        scratch, out)
+    _build.check(lib.g1_fft_launch(
+        x.data_ptr(), y.data_ptr(), z.data_ptr(), B, n, rounds,
+        u_idx.data_ptr(), v_idx.data_ptr(), digits.data_ptr(),
+        bits.data_ptr(), inv_bits.numel(), scratch.data_ptr(),
+        out.data_ptr(), _build.stream_ptr(x)), "g1_fft")
+    _build.launches["g1_fft"] += 1
+    return tuple(out)
+
+
+def fk20_hext_kernel(x, y, z, digits):
+    """K20: for each of the `width` positions j, sum_c k[c, j] X[c, j] by
+    window-4 Pippenger over the R residue rows: points (x, y, z), each
+    (R, width, 33) Jacobian, R <= 128; digits (R, width, 64), most
+    significant first.  (X, Y, Z), each (width, 33) canonical."""
+    R, width = x.shape[0], x.shape[1]
+    if not 1 <= R <= 128 or width < 1:
+        raise ValueError(f"fk20_hext: {R} residues, width {width}")
+    for name, t, shape in (("x", x, (R, width, 33)), ("y", y, (R, width, 33)),
+                           ("z", z, (R, width, 33)),
+                           ("digits", digits, (R, width, 64))):
+        _limbs(name, t, shape)
+    dev = x.device
+    lib = lib_for(dev, "g1_fft")
+    out = torch.empty((3, width, 33), dtype=torch.int32, device=dev)
+    _build.require_cuda("fk20_hext", x, y, z, digits, out)
+    _build.check(lib.fk20_hext_launch(
+        x.data_ptr(), y.data_ptr(), z.data_ptr(), digits.data_ptr(), R,
+        width, out.data_ptr(), _build.stream_ptr(x)), "fk20_hext")
+    _build.launches["fk20_hext"] += 1
     return tuple(out)

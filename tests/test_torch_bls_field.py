@@ -20,6 +20,18 @@ from consensus_specs_tpu_torch.ops.bls_batch import fq as F
 from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
 from consensus_specs_tpu_torch.ops.bls_batch import tower as T
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions are thousands of small int32 ops: one intra-op
+    thread runs them faster than a pool of one thread per core, and
+    keeps parallel test workers from oversubscribing the cores."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 _JIT = {}
 
 

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K18 (and K3's gather mode) against their
+"""The port's CUDA kernels K1-K20 (and K3's gather mode) against their
 plain PyTorch versions on the card, bit for bit (the BLS kernels at
 canonical values), at small shapes.  Every test here needs an NVIDIA
 GPU and nvcc; without a card they skip.  On the card, where JAX is not
@@ -172,6 +172,7 @@ _BLS_KERNELS = ("bls_field_ops", "rlc_scalar_mul", "rlc_miller_product",
                 "msm_pippenger", "msm_double_add")
 _FR_KERNELS = ("fr_field_ops", "fr_barycentric", "fr_coset_interpolate",
                "fr_fft")
+_G1FFT_KERNELS = ("g1_fft", "fk20_hext")
 
 
 def test_incremental_step_on_the_card(dev):
@@ -183,7 +184,8 @@ def test_incremental_step_on_the_card(dev):
     _build.reset_launches()
     got = IncrementalEpochStep(MAINNET, reg, sc, leaves, dirty, device=dev)()
     assert all(v > 0 for k, v in _build.launches.items()
-               if k != "proof_paths" and k not in _BLS_KERNELS + _FR_KERNELS)
+               if k != "proof_paths"
+               and k not in _BLS_KERNELS + _FR_KERNELS + _G1FFT_KERNELS)
     want = IncrementalEpochStep(MAINNET, reg, sc, leaves, dirty, device=dev,
                                 plain=True)()
     assert all(torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, want))
@@ -561,3 +563,120 @@ def test_kzg_das_and_cells_on_the_card(dev):
     _build.reset_launches()
     assert D.compute_cells(blob) == true_cells
     assert _build.launches["fr_fft"] == 2
+
+
+# --- slice 6: K19 and K20, the PeerDAS producer and recovery ---------------------
+
+
+def _same_points(got, plain):
+    """K19/K20 output against the plain version's: canonical coordinates
+    equal where Z != 0, the Z = 0 flag equal elsewhere."""
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+
+    gx, gy, gz = got
+    px, py, pz = (F.fq_canon(c) for c in plain)
+    inf = (pz == 0).all(-1)
+    assert torch.equal((gz == 0).all(-1), inf)
+    live = ~inf
+    return all(torch.equal(g[live], p[live])
+               for g, p in ((gx, px), (gy, py), (gz, pz)))
+
+
+@pytest.mark.parametrize("n,batch,inverse", [(8, 2, False), (8, 2, True),
+                                             (16, 3, True)])
+def test_g1_fft_kernel(dev, n, batch, inverse):
+    from consensus_specs_tpu_torch.ops.bls import curve as Cv
+    from consensus_specs_tpu_torch.ops.bls_batch import g1fft as G
+
+    rows = []
+    for b in range(batch):
+        row = [Cv.g1.mul(Cv.G1_GEN, 3 + 7 * b + i) for i in range(n - 2)]
+        rows.append(row + [Cv.g1.infinity()] * 2)
+    limbs = [G.points_to_limbs(r) for r in rows]
+    x, y, z = (torch.from_numpy(np.stack([lb[i] for lb in limbs])).to(dev)
+               for i in range(3))
+    perm = torch.tensor(G._bitrev_perm(n), device=dev)
+    args = tuple(c[:, perm] for c in (x, y, z))
+    before = _build.launches["g1_fft"]
+    got = G.fft(*args, inverse=inverse)
+    torch.cuda.synchronize()
+    assert _build.launches["g1_fft"] == before + 1
+    assert _same_points(got, G.fft(*args, inverse=inverse, plain=True))
+    # against the naive evaluation, and the round trip
+    out = G.limbs_to_oracle_list(got)
+    dom = G.fft_domain(n)
+    if inverse:
+        dom = [dom[0]] + list(dom[:0:-1])
+    inv_n = pow(n, G.R_MODULUS - 2, G.R_MODULUS) if inverse else 1
+    for b, row in enumerate(rows):
+        for i in range(n):
+            want = Cv.g1.infinity()
+            for j, pt in enumerate(row):
+                want = Cv.g1.add(want, Cv.g1.mul(
+                    pt, dom[(i * j) % n] * inv_n % G.R_MODULUS))
+            assert Cv.g1.eq_points(out[n * b + i], want), (b, i)
+    back = G.limbs_to_oracle_list(G.g1_fft_device(
+        *got, inverse=not inverse, device=dev))
+    for b, row in enumerate(rows):
+        for i, pt in enumerate(row):
+            assert Cv.g1.eq_points(back[n * b + i], pt)
+
+
+def test_fk20_hext_kernel(dev):
+    import random
+
+    from consensus_specs_tpu_torch.ops.bls import curve as Cv
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+    from consensus_specs_tpu_torch.ops.bls_batch import g1fft as G
+    from consensus_specs_tpu_torch.ops.bls_batch.curve import \
+        scalars_to_digits
+
+    rng = random.Random(6)
+    n_res, width = 8, 16
+    pts = [[Cv.g1.double(Cv.g1.mul(Cv.G1_GEN, rng.randrange(1, 999)))
+            for _ in range(width)] for _ in range(n_res)]
+    pts[3][4] = Cv.g1.infinity()
+    scalars = [[rng.randrange(G.R_MODULUS) for _ in range(width)]
+               for _ in range(n_res)]
+    scalars[1][2] = 0
+    x, y, z = (torch.from_numpy(np.stack([[F.to_mont(p[i]) for p in row]
+                                          for row in pts])).to(dev)
+               for i in range(3))
+    digits = torch.from_numpy(scalars_to_digits(
+        [s for row in scalars for s in row], 255, 4).reshape(
+            n_res, width, 64)).to(dev)
+    before = _build.launches["fk20_hext"]
+    got = G.hext(x, y, z, digits)
+    torch.cuda.synchronize()
+    assert _build.launches["fk20_hext"] == before + 1
+    assert _same_points(got, G.hext(x, y, z, digits, plain=True))
+    out = G.limbs_to_oracle_list(got)
+    for j in range(width):
+        want = Cv.g1.msm([pts[c][j] for c in range(n_res)],
+                         [scalars[c][j] for c in range(n_res)])
+        assert Cv.g1.eq_points(out[j], want), j
+
+
+def test_producer_and_recovery_on_the_card(dev):
+    """Slice 6 through the facade's default device: the closed-form
+    blob's cells and proofs by FK20 (K18, K15, K20, K19), one column by
+    `cell_proof_for_column`, the recovery from the 64 even cells, and a
+    rejected recovery."""
+    from consensus_specs_tpu_torch import convert as C
+    from consensus_specs_tpu_torch import das as D
+
+    blob, cells, proofs, _ = C.closed_form_blob()
+    _build.reset_launches()
+    got = D.compute_cells_and_kzg_proofs(blob)
+    assert got == (cells, proofs)
+    assert _build.launches["fk20_hext"] == 1
+    assert _build.launches["g1_fft"] >= 2
+    assert D.cell_proof_for_column(blob, 77) == proofs[77]
+    keep = list(range(0, 128, 2))
+    _build.reset_launches()
+    assert D.recover_cells_and_kzg_proofs(
+        keep, [cells[k] for k in keep]) == (cells, proofs)
+    assert _build.launches["g1_fft"] == 2
+    with pytest.raises(AssertionError):
+        D.recover_cells_and_kzg_proofs(keep[:63], [cells[k]
+                                                   for k in keep[:63]])

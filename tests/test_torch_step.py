@@ -160,7 +160,12 @@ def test_port_modules_import_without_jax():
             "consensus_specs_tpu_torch.ops.bls_batch, "
             "consensus_specs_tpu_torch.ops.fr_batch, "
             "consensus_specs_tpu_torch.models.deneb.polynomial_commitments, "
-            "consensus_specs_tpu_torch.das; "
+            "consensus_specs_tpu_torch.models.fulu."
+            "polynomial_commitments_sampling, "
+            "consensus_specs_tpu_torch.ops.bls_batch.g1fft, "
+            "consensus_specs_tpu_torch.das, "
+            "consensus_specs_tpu_torch.das.recover, "
+            "consensus_specs_tpu_torch.das.sampling; "
             "bad = [m for m in set(sys.modules) - before if m == 'jax' "
             "or m.startswith('jax.') or m == 'consensus_specs_tpu' "
             "or m.startswith('consensus_specs_tpu.')]; "
