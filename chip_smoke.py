@@ -7,7 +7,7 @@ from the root of the repository, on a machine with one CUDA card, nvcc
 and PyTorch built for CUDA.  The script:
 
 1. prints the card's name and power limit;
-2. builds the kernels K1-K20 from `consensus_specs_tpu_torch/csrc/` (one
+2. builds the kernels K1-K23 from `consensus_specs_tpu_torch/csrc/` (one
    nvcc per source, all started together) into the git-ignored
    `consensus_specs_tpu_torch/_build/`;
 3. runs each kernel and its plain PyTorch version on the card, on the
@@ -87,7 +87,18 @@ and PyTorch built for CUDA.  The script:
    (the decode on K18 and K15, the re-evaluation, the FK20 re-prove):
    byte-equal to the closed form and the producer's output, cold and
    warm times with the split; 63 cells and a duplicate index rejected;
-17. prints each phase's seconds, one JSON line of the kernels held, then,
+17. slice 7, fork choice: K21 (`fc_apply`), K22 (`fc_refresh`) and K23
+   (`fc_head`) against their plain versions at the mainnet shape (1024
+   blocks, 2**20 validators, batches of 16384) on seeded inputs with a
+   repeated validator, padded rows, equivocators, the boost and a head
+   decided by root words at the 2**31 boundary, K22 also against
+   `index_add_`; then three paths through `ProtoArrayStore` on the card
+   (`bench.py:897 worker_forkchoice`'s 256 x 16384 and 1024 x 262144
+   with batches of 1024, and 1024 x 2**20 with batches of 16384), each 8
+   batches followed by `get_head`, the head, accepted count and live
+   weights after every batch equal to a plain store's on the card; apply
+   and head times with the host parse and each kernel's device time;
+18. prints each phase's seconds, one JSON line of the kernels held, then,
    last, the result line `{"ok": true, "device": {...}}`.
 
 Every phase is fatal: any failure raises and the script exits non-zero
@@ -149,6 +160,14 @@ FR_FIELD_N = 1024
 # slice 6: the producer's and the recovery's warm repeats
 DAS_PRODUCER_TIMED = 3
 DAS_RECOVER_TIMED = 3
+# slice 7, fork choice: (path, blocks, validators, batch): bench.py:897
+# worker_forkchoice's default CST_FC_MATRIX with its batches of 1024, then
+# the mainnet width (1024 unfinalized blocks, 2**20 validators, batches of
+# 16384: the top rungs of FC_VALIDATOR_STEPS and FC_BATCH_STEPS)
+FC_PATHS = (("forkchoice_256x16384", 256, 16384, 1024),
+            ("forkchoice_1024x262144", 1024, 262144, 1024),
+            ("forkchoice_mainnet", 1024, 2**20, 16384))
+FC_BATCHES = 8
 # an Fr Montgomery product over 8 32-bit words: 2 x 64 multiply-adds of
 # two 32-bit instructions each; an inversion by r - 2 is 254 squarings
 # and 163 products
@@ -194,18 +213,23 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, setup=None) -> float:
     """Mean device time of one call of `fn`, from CUDA events around each
     call.  A sleep kernel queued before each call keeps the device busy
     while the host enqueues it, so the host's time between launches is
     not counted (it is for `cuda_ms`, which a small kernel's wrapper
-    overhead then dominates)."""
+    overhead then dominates).  `setup`, where given, runs before each
+    call, outside the events (to restore what `fn` updates in place)."""
     import torch
 
+    if setup:
+        setup()
     fn()
     torch.cuda.synchronize()
     events = []
     for _ in range(reps):
+        if setup:
+            setup()
         torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -2237,6 +2261,199 @@ def recovery_path(dense):
     return counts
 
 
+def _fc_tensors(x: dict, dev) -> dict:
+    import torch
+
+    return {k: (torch.from_numpy(np.array(v, copy=True)).to(dev)
+                if isinstance(v, np.ndarray) else v) for k, v in x.items()}
+
+
+def check_fc_kernels(dev, record):
+    """K21-K23 (`csrc/forkchoice.cu`) against their plain versions on the
+    card at the mainnet shape (FC_MAINNET: 1024 blocks, 2**20
+    validators, batches of 16384) on `forkchoice.synthetic.kernel_inputs`
+    from SEED: a validator repeated over ten rows at one epoch (the first
+    must win), 1/8 padded rows, equivocators, the boost, and a head
+    decided by root words at the 2**31 boundary.  Zero tolerance outside
+    the dummy slots.  Times each kernel, its plain version and, for K22,
+    `index_add_`; each bound in bytes from this run's data."""
+    import torch
+
+    from consensus_specs_tpu_torch.forkchoice import kernels as FK
+    from consensus_specs_tpu_torch.forkchoice import synthetic as FS
+
+    _, nb, nv, b = FC_PATHS[-1]
+    x = FS.kernel_inputs(nb, nv, b, seed=SEED)
+    names = ("val_idx", "att_epoch", "att_block", "lm_epoch", "lm_block",
+             "balance", "can_update", "node_weight")
+    k, p, orig = (_fc_tensors(x, dev) for _ in range(3))
+    acc = FK.fc_apply_kernel(*(k[n] for n in names))
+    want = FK.fc_apply_plain(*(p[n] for n in names))
+    err = require_equal("fc_apply", [acc, k["lm_epoch"][:nv],
+                                     k["lm_block"][:nv],
+                                     k["node_weight"][:nb]],
+                        [want, p["lm_epoch"][:nv], p["lm_block"][:nv],
+                         p["node_weight"][:nb]])
+    if not bool(acc[0]) or bool(acc[1:10].any()) \
+            or bool(acc[b - b // 8:].any()):
+        raise AssertionError("fc_apply: the earliest row did not win alone, "
+                             "or a padded row was accepted")
+    if bool((acc & ~k["can_update"][k["val_idx"].long()]).any()):
+        raise AssertionError("fc_apply: an equivocator's row was accepted")
+
+    def restore():
+        for n in ("lm_epoch", "lm_block", "node_weight"):
+            k[n].copy_(orig[n])
+
+    apply_ms = device_ms(lambda: FK.fc_apply_kernel(*(k[n] for n in names)),
+                         20, setup=restore)
+    apply_plain = device_ms(
+        lambda: FK.fc_apply_plain(*(k[n] for n in names)), 5, setup=restore)
+    live = x["att_epoch"] >= 0
+    acc_np = acc.cpu().numpy()
+    touched = np.unique(np.concatenate([
+        x["lm_block"][x["val_idx"][acc_np]], x["att_block"][acc_np]]))
+    k21_bytes = (b * (4 + 8 + 4 + 1)
+                 + np.unique(x["val_idx"][live]).size * (8 + 4 + 8 + 1)
+                 + int(acc_np.sum()) * (8 + 4)
+                 + int((touched >= 0).sum()) * 8 * 2)
+    record("fc_apply", "consensus_specs_tpu_torch/csrc/forkchoice.cu",
+           "consensus_specs_tpu/forkchoice/kernels.py:75", err, apply_ms,
+           apply_plain, k21_bytes / HBM_BYTES_PER_S * 1e3, "bytes",
+           bound_bytes=int(k21_bytes), accepted=int(acc_np.sum()),
+           shape=f"B={b}, V={nv}, NB={nb}")
+
+    lm_b, bal = orig["lm_block"], orig["balance"]
+    ref = FK.fc_refresh_kernel(lm_b, bal, nb)
+    err = require_equal("fc_refresh", ref[:nb],
+                        FK.fc_refresh_plain(lm_b, bal, nb)[:nb])
+    err = max(err, require_equal("fc_refresh(table)", ref[:nb],
+                                 orig["node_weight"][:nb]))
+    has = lm_b >= 0
+    tgt = torch.where(has, lm_b.long(), nb)
+    val = torch.where(has, bal, 0)
+    lib = torch.zeros(nb + 1, dtype=torch.int64, device=dev).index_add_(
+        0, tgt, val)
+    err = max(err, require_equal("index_add_", ref[:nb], lib[:nb]))
+    k22_bytes = (nv + 1) * (4 + 8) + (nb + 1) * 8
+    record("fc_refresh", "consensus_specs_tpu_torch/csrc/forkchoice.cu",
+           "consensus_specs_tpu/forkchoice/kernels.py:130", err,
+           device_ms(lambda: FK.fc_refresh_kernel(lm_b, bal, nb), 50),
+           device_ms(lambda: FK.fc_refresh_plain(lm_b, bal, nb), 10),
+           k22_bytes / HBM_BYTES_PER_S * 1e3, "bytes",
+           bound_bytes=int(k22_bytes), shape=f"V={nv}, NB={nb}")
+    library_ms = device_ms(
+        lambda: torch.zeros(nb + 1, dtype=torch.int64,
+                            device=dev).index_add_(0, tgt, val), 50)
+
+    heads, err = [], 0
+    zero = torch.zeros_like(orig["node_weight"])
+    for w, bi, ba in ((orig["node_weight"], nb, 0),
+                      (orig["node_weight"], x["boost_idx"], x["boost_amt"]),
+                      (zero, nb, 0)):
+        args = (orig["parent"], w, bi, ba, orig["real"],
+                orig["block_epoch"], orig["je"], orig["uje"],
+                orig["fin_ok"], orig["limbs"], x["sj"], x["sf"], x["cur"],
+                x["justified_idx"])
+        got = FK.fc_head_kernel(*args)
+        err = max(err, require_equal("fc_head", got, FK.fc_head_plain(*args)))
+        heads.append(int(got))
+    if heads[2] != 4:
+        raise AssertionError(f"fc_head: the root-word tie-break gave block "
+                             f"{heads[2]}, not 4")
+    args = (orig["parent"], orig["node_weight"], x["boost_idx"],
+            x["boost_amt"], orig["real"], orig["block_epoch"], orig["je"],
+            orig["uje"], orig["fin_ok"], orig["limbs"], x["sj"], x["sf"],
+            x["cur"], x["justified_idx"])
+    k23_bytes = (nb + 1) * (4 + 8 + 1 + 3 * 8 + 1 + 8 * 8) + 4
+    record("fc_head", "consensus_specs_tpu_torch/csrc/forkchoice.cu",
+           "consensus_specs_tpu/forkchoice/kernels.py:148", err,
+           device_ms(lambda: FK.fc_head_kernel(*args), 50),
+           device_ms(lambda: FK.fc_head_plain(*args), 10),
+           k23_bytes / HBM_BYTES_PER_S * 1e3, "bytes",
+           bound_bytes=int(k23_bytes), shape=f"NB={nb}", heads=heads)
+    return library_ms
+
+
+def _fc_wrappers():
+    from consensus_specs_tpu_torch.forkchoice import kernels as FK
+
+    return [(FK, "fc_apply_kernel"), (FK, "fc_refresh_kernel"),
+            (FK, "fc_head_kernel")]
+
+
+def forkchoice_path(dev, name, n_blocks, n_validators, batch):
+    """One fork-choice path through `ProtoArrayStore` on the card:
+    `forkchoice.synthetic`'s seeded tree and attestation stream (the
+    workload of `bench.py:897 worker_forkchoice`), FC_BATCHES batches,
+    each applied and followed by `get_head`.  After every batch the head,
+    the accepted count and the live weights must equal those of a second
+    store built the same way that runs the plain versions on the card.
+    Times each apply and each head poll (host clock, synchronised), the
+    host parse of a batch apart, and, on a third store, each kernel's
+    device time (CUDA events around each launch)."""
+    import itertools
+
+    import torch
+
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch.forkchoice import synthetic as FS
+
+    card, roots = FS.synthetic_store(n_blocks, n_validators, device=dev)
+    plain, _ = FS.synthetic_store(n_blocks, n_validators, device=dev,
+                                  plain=True)
+    batches = list(itertools.islice(FS.attestation_stream(
+        roots, n_validators, batch, seed=29), FC_BATCHES))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    applies, polls, accepted = [], [], 0
+    for bt in batches:
+        t0 = time.perf_counter()
+        n_card = card.apply_attestations(*bt)
+        t1 = time.perf_counter()
+        head = card.get_head()
+        t2 = time.perf_counter()
+        applies.append((t1 - t0) * 1e3)
+        polls.append((t2 - t1) * 1e3)
+        if n_card != plain.apply_attestations(*bt) \
+                or head != plain.get_head() \
+                or not np.array_equal(card.node_weights_device(),
+                                      plain.node_weights_device()):
+            raise AssertionError(f"{name}: the card store differs from the "
+                                 "plain store")
+        accepted += n_card
+    counts = read_launches(name)
+    if (counts.get("fc_apply"), counts.get("fc_head"),
+            counts.get("fc_refresh")) != (FC_BATCHES, FC_BATCHES, 1):
+        raise AssertionError(f"{name}: unexpected launches {counts}")
+    parse = []
+    for bt in batches:
+        t0 = time.perf_counter()
+        card._parse_batch(*bt)
+        parse.append((time.perf_counter() - t0) * 1e3)
+    timed, _ = FS.synthetic_store(n_blocks, n_validators, device=dev)
+
+    def run():
+        for bt in batches:
+            timed.apply_attestations(*bt)
+            timed.get_head()
+
+    per = kernel_device_ms(run, _fc_wrappers())
+    apply_ms, head_ms = statistics.median(applies), statistics.median(polls)
+    print(f"{name} ({n_blocks} blocks x {n_validators} validators, "
+          f"batches of {batch}, {FC_BATCHES} batches, {accepted} accepted): "
+          f"apply median_ms={apply_ms:.4f} (min {min(applies):.4f}, max "
+          f"{max(applies):.4f}; host parse median_ms="
+          f"{statistics.median(parse):.4f}; K21 device_ms per batch="
+          f"{per['fc_apply_kernel'] / FC_BATCHES:.6f}) head median_ms="
+          f"{head_ms:.4f} (min {min(polls):.4f}, max {max(polls):.4f}; K23 "
+          f"device_ms per poll={per['fc_head_kernel'] / FC_BATCHES:.6f}) "
+          f"heads_per_s={1e3 / head_ms:.1f}; K22 device_ms (one rebuild)="
+          f"{per['fc_refresh_kernel']:.6f}; head, accepted counts and "
+          f"weights equal the plain store's after every batch")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2487,6 +2704,13 @@ def main() -> int:
     phase("das producer")
     recovery_counts = recovery_path(dense)
     phase("das recovery")
+    # -- slice 7: fork choice, K21-K23 -------------------------------------
+    fc_library_ms = check_fc_kernels(dev, record)
+    kernels["fc_refresh"]["library_ms"] = fc_library_ms
+    phase("fork choice kernels")
+    fc_counts = {name: forkchoice_path(dev, name, *shape)
+                 for name, *shape in FC_PATHS}
+    phase("fork choice paths")
     k18_ms, k18_plain = k18_fk20["fr_fft_64x128"]
     k18_products = 64 * (128 // 2) * 7
     k18_bms, _ = fr_bound(k18_products, (2 * 64 * 128 + 64 + 1) * 132,
@@ -2504,14 +2728,14 @@ def main() -> int:
              "das_verify": das_counts, "compute_cells": cells_counts,
              "das_producer": producer_counts,
              "das_producer_cold": producer_cold_counts,
-             "das_recovery": recovery_counts}
+             "das_recovery": recovery_counts, **fc_counts}
     # K7 holds the Fq layer (rows 7-8) and runs on no path; K15 holds the
     # Fr layer (row 14) and runs on the producer's and the recovery's paths
     field_checks = {"bls_field_ops": field_counts, "fr_field_ops": fr_counts}
     main_path = ("incremental_step", "full_step", "bls_batch_h2c",
                  "pairing_check", f"msm_{MSM_SIZES[1]}", f"msm_{MSM_SIZES[2]}",
                  "proofs", "kzg_verify", "das_verify", "compute_cells",
-                 "das_producer", "das_recovery")
+                 "das_producer", "das_recovery", "forkchoice_mainnet")
     for k in kernels.values():
         name = k["name"]
         by = {p: c[name] for p, c in paths.items() if c.get(name)}
@@ -2528,7 +2752,9 @@ def main() -> int:
         print(f"kernel {k['name']}: launches={k['launches']} "
               f"max_abs_err={k['max_abs_err']} kernel_ms={k['ms']:.6f} "
               f"plain_ms={k['plain_ms']:.6f} bound_ms={k['bound_ms']:.6f} "
-              f"({k['bound_by']}) library_ms=null")
+              f"({k['bound_by']}) library_ms="
+              + ("null" if k["library_ms"] is None
+                 else f"{k['library_ms']:.6f}"))
     print("kernels: " + json.dumps(list(kernels)))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,8 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("epoch_sweep", "sha256", "records_root", "incremental", "bls_rlc",
-           "bls_h2c", "bls_pairing", "bls_msm", "fr_batch", "g1_fft")
+           "bls_h2c", "bls_pairing", "bls_msm", "fr_batch", "g1_fft",
+           "forkchoice")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,7 +41,7 @@ launches = {"epoch_sweep": 0, "sha256_64B": 0, "records_root": 0,
             "precomp_miller_product": 0, "msm_pippenger": 0,
             "msm_double_add": 0, "fr_field_ops": 0, "fr_barycentric": 0,
             "fr_coset_interpolate": 0, "fr_fft": 0, "g1_fft": 0,
-            "fk20_hext": 0}
+            "fk20_hext": 0, "fc_apply": 0, "fc_refresh": 0, "fc_head": 0}
 
 
 def reset_launches() -> None:

@@ -184,3 +184,36 @@ def closed_form_blob(c2: int = 90001, c1: int = 80001, c0: int = 70001):
     cells = [per_cell[k][0] for k in range(cs.CELLS_PER_EXT_BLOB)]
     proofs = [per_cell[k][1] for k in range(cs.CELLS_PER_EXT_BLOB)]
     return cs._encode_evals(evals), cells, proofs, commitment
+
+
+def proto_store_from_mirror(src, device="cuda"):
+    """A port `ProtoArrayStore` on `device` in the same state as `src`,
+    any object with the JAX store's host mirror: the block lists (`roots`,
+    `parent`, `slots`, `je`, `uje`, `_fin_ok`), the validator arrays
+    (`_eb`, `_active`, `_slashed`, `_equiv`, `_lm_epoch`, `_lm_block`),
+    the checkpoints, the clock, the boost root and the constructor's
+    constants.  `src._sync_pending()` runs first, so batches `src`
+    applied on its device are in the mirror."""
+    from .forkchoice import ProtoArrayStore
+
+    src._sync_pending()
+    dst = ProtoArrayStore(
+        src.roots[0], src.slots[0], justified_epoch=src.justified_epoch,
+        finalized_epoch=src.finalized_epoch,
+        slots_per_epoch=src.slots_per_epoch,
+        proposer_boost_pct=src.proposer_boost_pct,
+        effective_balance_increment=src.effective_balance_increment,
+        preset=src.preset, device=device)
+    dst.roots = [bytes(r) for r in src.roots]
+    dst.root_index = {r: i for i, r in enumerate(dst.roots)}
+    for name in ("parent", "slots", "je", "uje"):
+        setattr(dst, name, [int(x) for x in getattr(src, name)])
+    dst._fin_ok = [bool(x) for x in src._fin_ok]
+    for name in ("_eb", "_active", "_slashed", "_equiv", "_lm_epoch",
+                 "_lm_block"):
+        setattr(dst, name, np.array(getattr(src, name), copy=True))
+    dst.justified_root = bytes(src.justified_root)
+    dst.finalized_root = bytes(src.finalized_root)
+    dst.current_epoch = int(src.current_epoch)
+    dst.set_proposer_boost(src.proposer_boost_root)
+    return dst

@@ -1,10 +1,15 @@
-"""The port's CUDA kernels K1-K20 (and K3's gather mode) against their
+"""The port's CUDA kernels K1-K23 (and K3's gather mode) against their
 plain PyTorch versions on the card, bit for bit (the BLS kernels at
 canonical values), at small shapes.  Every test here needs an NVIDIA
 GPU and nvcc; without a card they skip.  On the card, where JAX is not
 installed and so the suite's conftest cannot load:
 
-    python -m pytest tests/test_torch_cuda.py -q --noconftest
+    python -m pytest tests/test_torch_cuda.py -q -s --noconftest
+
+The fork-choice store and config #1 tests also use the JAX package's
+spec builder and test helpers, which load no JAX but need PyYAML; they
+skip where it is missing.  With `-s`, config #1 prints its seconds per
+block.
 """
 
 import numpy as np
@@ -173,6 +178,7 @@ _BLS_KERNELS = ("bls_field_ops", "rlc_scalar_mul", "rlc_miller_product",
 _FR_KERNELS = ("fr_field_ops", "fr_barycentric", "fr_coset_interpolate",
                "fr_fft")
 _G1FFT_KERNELS = ("g1_fft", "fk20_hext")
+_FC_KERNELS = ("fc_apply", "fc_refresh", "fc_head")
 
 
 def test_incremental_step_on_the_card(dev):
@@ -185,7 +191,8 @@ def test_incremental_step_on_the_card(dev):
     got = IncrementalEpochStep(MAINNET, reg, sc, leaves, dirty, device=dev)()
     assert all(v > 0 for k, v in _build.launches.items()
                if k != "proof_paths"
-               and k not in _BLS_KERNELS + _FR_KERNELS + _G1FFT_KERNELS)
+               and k not in _BLS_KERNELS + _FR_KERNELS + _G1FFT_KERNELS
+               + _FC_KERNELS)
     want = IncrementalEpochStep(MAINNET, reg, sc, leaves, dirty, device=dev,
                                 plain=True)()
     assert all(torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, want))
@@ -680,3 +687,166 @@ def test_producer_and_recovery_on_the_card(dev):
     with pytest.raises(AssertionError):
         D.recover_cells_and_kzg_proofs(keep[:63], [cells[k]
                                                    for k in keep[:63]])
+
+
+# --- slice 7: fork choice (K21-K23) and config #1 -----------------------------
+
+
+def _fc_tensors(x, dev):
+    return {k: (torch.from_numpy(np.array(v, copy=True)).to(dev)
+                if isinstance(v, np.ndarray) else v) for k, v in x.items()}
+
+
+_FC_APPLY = ("val_idx", "att_epoch", "att_block", "lm_epoch", "lm_block",
+             "balance", "can_update", "node_weight")
+
+
+@pytest.mark.parametrize("nb_pad,v_pad,batch", [(64, 256, 64),
+                                                (1024, 4096, 1024)])
+def test_fc_kernels(dev, nb_pad, v_pad, batch):
+    """K21-K23 against their plain versions: repeated validators at one
+    epoch, padded rows, equivocators, the boost, and heads decided by
+    root words at the 2**31 boundary (every comparison leaves out the
+    dummy slot)."""
+    from consensus_specs_tpu_torch.forkchoice import kernels as FK
+    from consensus_specs_tpu_torch.forkchoice import synthetic as FS
+
+    for seed in range(2):
+        x = FS.kernel_inputs(nb_pad, v_pad, batch, seed=seed)
+        k, p = _fc_tensors(x, dev), _fc_tensors(x, dev)
+        before = dict(_build.launches)
+        acc = FK.fc_apply(*(k[n] for n in _FC_APPLY))
+        want = FK.fc_apply_plain(*(p[n] for n in _FC_APPLY))
+        torch.cuda.synchronize()
+        assert torch.equal(acc, want) and bool(acc[0]) and \
+            not acc[1:10].any()
+        assert torch.equal(k["lm_epoch"][:v_pad], p["lm_epoch"][:v_pad])
+        assert torch.equal(k["lm_block"][:v_pad], p["lm_block"][:v_pad])
+        assert torch.equal(k["node_weight"][:nb_pad],
+                           p["node_weight"][:nb_pad])
+        ref = FK.fc_refresh(k["lm_block"], k["balance"], nb_pad)
+        assert torch.equal(ref[:nb_pad], FK.fc_refresh_plain(
+            p["lm_block"], p["balance"], nb_pad)[:nb_pad])
+        assert torch.equal(ref[:nb_pad], k["node_weight"][:nb_pad])
+        zero = torch.zeros_like(k["node_weight"])
+        for w, bi, ba in ((k["node_weight"], nb_pad, 0),
+                          (k["node_weight"], x["boost_idx"], x["boost_amt"]),
+                          (zero, nb_pad, 0)):
+            args = (k["parent"], w, bi, ba, k["real"], k["block_epoch"],
+                    k["je"], k["uje"], k["fin_ok"], k["limbs"], x["sj"],
+                    x["sf"], x["cur"], x["justified_idx"])
+            head = int(FK.fc_head(*args))
+            assert head == int(FK.fc_head_plain(*args))
+        assert head == 4
+        for name, n in (("fc_apply", 1), ("fc_refresh", 1), ("fc_head", 3)):
+            assert _build.launches[name] == before[name] + n
+
+
+def test_fc_store_on_the_card_equals_the_spec_oracle(dev):
+    """Three randomized stores (the JAX suite's generator, on the port's
+    store) on the card: heads equal to the phase0 spec's `get_head`
+    through `consensus_specs_tpu.forkchoice.oracle` (which loads no JAX),
+    weights to the host mirror's."""
+    pytest.importorskip("yaml")
+    from consensus_specs_tpu.forkchoice import oracle as jax_oracle
+    from consensus_specs_tpu_torch.forkchoice import ProtoArrayStore
+
+    for seed in range(3):
+        rng = np.random.RandomState(seed)
+        anchor = bytes([seed % 256]) + b"\x00" * 31
+        st = ProtoArrayStore(anchor, 0, slots_per_epoch=8, preset="minimal",
+                             device=dev)
+        roots = [anchor]
+        for i in range(1, 18):
+            parent = roots[rng.randint(0, i)]
+            slot = st.slots[st.root_index[parent]] + 1 + rng.randint(0, 2)
+            root = bytes(rng.randint(0, 256, 32, dtype=np.uint8))
+            st.add_block(root, parent, slot, 0, 0)
+            roots.append(root)
+        eb = np.full(40, 32 * 10**9, dtype=np.int64)
+        eb[rng.randint(0, 40, 4)] = 31 * 10**9
+        active = np.ones(40, bool)
+        active[rng.randint(0, 40, 2)] = False
+        st.set_validators(eb, active=active)
+        st.set_current_epoch(max(st.slots) // 8 + 1)
+        _build.reset_launches()
+        for _ in range(3):
+            k = rng.randint(1, 24)
+            st.apply_attestations(
+                rng.randint(0, 40, k).tolist(), rng.randint(0, 4, k).tolist(),
+                [roots[rng.randint(0, 18)] for _ in range(k)])
+        if seed % 2:
+            st.set_proposer_boost(roots[rng.randint(1, 18)])
+        head = st.get_head()
+        assert _build.launches["fc_apply"] == 3
+        assert _build.launches["fc_refresh"] == 1
+        assert _build.launches["fc_head"] == 1
+        assert head == jax_oracle.spec_get_head(st)
+        assert (st.node_weights_device() == st.node_weights_host()).all()
+
+
+def test_config1_state_transition_on_the_card(dev, monkeypatch):
+    """Config #1, `bench.py:1172 worker_spec`'s loop: minimal phase0, 64
+    validators, signatures on, each block built and signed on the host
+    and imported through the port's `state_transition_batched` with the
+    facade on the card (the RANDAO and proposer checks through K12 ->
+    K10); seconds per block, cold and the median of 3 warm, then the same
+    signed blocks replayed through the spec's own `state_transition` on
+    the JAX package's host oracle, to the same state root."""
+    import statistics
+    import time
+
+    pytest.importorskip("yaml")
+    from consensus_specs_tpu.models.builder import build_spec
+    from consensus_specs_tpu.ops import bls as jax_bls
+    from consensus_specs_tpu.testlib.helpers.block import (
+        build_empty_block_for_next_slot, sign_block)
+    from consensus_specs_tpu.testlib.helpers.genesis import \
+        create_genesis_state
+    from consensus_specs_tpu_torch import executor
+    from consensus_specs_tpu_torch.ops import bls as port_bls
+
+    monkeypatch.setattr(jax_bls, "bls_active", True)
+    monkeypatch.setattr(port_bls, "bls_active", True)
+    monkeypatch.setattr(port_bls, "_backend_name", "torch")
+    monkeypatch.setattr(port_bls, "_device", str(dev))
+    spec = build_spec("phase0", "minimal")
+    balance = int(spec.MAX_EFFECTIVE_BALANCE)
+    genesis = create_genesis_state(spec, [balance] * 64, balance)
+
+    def transition_one(st):
+        block = build_empty_block_for_next_slot(spec, st)
+        shadow = st.copy()
+        executor.state_transition_batched(
+            spec, shadow, spec.SignedBeaconBlock(message=block),
+            validate_result=False)
+        block.state_root = spec.hash_tree_root(shadow)
+        signed = sign_block(spec, st.copy(), block)
+        executor.state_transition_batched(spec, st, signed)
+        return signed
+
+    st = genesis.copy()
+    _build.reset_launches()
+    walls, blocks = [], []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        blocks.append(transition_one(st))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    # three eager checks a block: the shadow's RANDAO, then the proposer
+    # signature and the RANDAO of the import
+    assert _build.launches["precomp_miller_product"] == 12
+    assert _build.launches["final_exp_is_one"] == 12
+    replay = genesis.copy()
+    t0 = time.perf_counter()
+    for signed in blocks:
+        spec.state_transition(replay, signed)
+    oracle_s = (time.perf_counter() - t0) / len(blocks)
+    assert spec.hash_tree_root(replay) == spec.hash_tree_root(st)
+    assert spec.bls is jax_bls
+    print(f"config #1 (minimal phase0, 64 validators, signatures on) on "
+          f"{torch.cuda.get_device_name(dev)}: cold_s_per_block="
+          f"{walls[0]:.4f} warm_median_s_per_block="
+          f"{statistics.median(walls[1:]):.4f} (min {min(walls[1:]):.4f}, "
+          f"max {max(walls[1:]):.4f}); the spec's state_transition on the "
+          f"host oracle, same blocks: {oracle_s:.4f} s per block")

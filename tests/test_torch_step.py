@@ -165,7 +165,12 @@ def test_port_modules_import_without_jax():
             "consensus_specs_tpu_torch.ops.bls_batch.g1fft, "
             "consensus_specs_tpu_torch.das, "
             "consensus_specs_tpu_torch.das.recover, "
-            "consensus_specs_tpu_torch.das.sampling; "
+            "consensus_specs_tpu_torch.das.sampling, "
+            "consensus_specs_tpu_torch.forkchoice, "
+            "consensus_specs_tpu_torch.forkchoice.oracle, "
+            "consensus_specs_tpu_torch.forkchoice.bridge, "
+            "consensus_specs_tpu_torch.forkchoice.synthetic, "
+            "consensus_specs_tpu_torch.executor; "
             "bad = [m for m in set(sys.modules) - before if m == 'jax' "
             "or m.startswith('jax.') or m == 'consensus_specs_tpu' "
             "or m.startswith('consensus_specs_tpu.')]; "
