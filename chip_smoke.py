@@ -7,7 +7,7 @@ from the root of the repository, on a machine with one CUDA card, nvcc
 and PyTorch built for CUDA.  The script:
 
 1. prints the card's name and power limit;
-2. builds the kernels K1-K23 from `consensus_specs_tpu_torch/csrc/` (one
+2. builds the kernels K1-K27 from `consensus_specs_tpu_torch/csrc/` (one
    nvcc per source, all started together) into the git-ignored
    `consensus_specs_tpu_torch/_build/`;
 3. runs each kernel and its plain PyTorch version on the card, on the
@@ -98,7 +98,33 @@ and PyTorch built for CUDA.  The script:
    batches followed by `get_head`, the head, accepted count and live
    weights after every batch equal to a plain store's on the card; apply
    and head times with the host parse and each kernel's device time;
-18. prints each phase's seconds, one JSON line of the kernels held, then,
+18. slice 8, the sharded paths, on virtual meshes that list the card D
+   times (the counterpart of the JAX tests' forced host devices): the
+   edge cases first, K24 (`epoch_sweep_sharded`, the sweep's three
+   phases per shard) at 2**14 validators over 4 shards with proposers in
+   other shards, negative and out of range, each phase against its plain
+   version and the sweep against K1; K25 (`rlc_miller_shard`) and K26
+   (`rlc_shard_combine`) on 16 statements over 4 shards, two of them
+   padding only, then K26 on two equal partials, K26's f equal to the
+   unsharded K9 f; K27 (`g1_shard_fold`) on (P, P, infinity, Q); then
+   K24 at the main path's shape (2**20 validators over 4 shards), each
+   phase and the whole sweep against the plain sharded sweep; the full
+   step at 2**20
+   validators over 2, 4 and 8 shards through `make_sharded_epoch_step`,
+   every output and every root replica equal to `make_epoch_step`'s,
+   timed beside it with each phase's device time; a `ShardedMerkleForest`
+   of the 2**20 balances over 4 shards with bench's 1% dirty update, its
+   root equal to the single forest's and 1024 proofs verified; config
+   #2's 128 statements through `batch_verify_sharded` over 4 shards,
+   accepted, its f equal to the unsharded host-hashed batch's, a wrong
+   key rejected, timed against that batch, with K25 on that batch's
+   shard of 32 lanes and K26 on its 4 partials against their plain
+   versions; `g1_multi_exp_sharded` at
+   4096 points over 4 shards against the oracle and
+   `g1_multi_exp_device`; the DAS verify with its MSMs over 2 shards;
+   and, on a machine with two cards or more, the step, forest, batch and
+   MSM once more over real cards (`device_ids`);
+19. prints each phase's seconds, one JSON line of the kernels held, then,
    last, the result line `{"ok": true, "device": {...}}`.
 
 Every phase is fatal: any failure raises and the script exits non-zero
@@ -153,7 +179,7 @@ KZG_BLOBS = 6
 KZG_TIMED = 5
 DAS_BLOBS = 8
 DAS_COLUMNS = 128
-DAS_TIMED = 2
+DAS_TIMED = 3
 DAS_SUB = 16
 DAS_BAD = 5
 FR_FIELD_N = 1024
@@ -168,6 +194,19 @@ FC_PATHS = (("forkchoice_256x16384", 256, 16384, 1024),
             ("forkchoice_1024x262144", 1024, 262144, 1024),
             ("forkchoice_mainnet", 1024, 2**20, 16384))
 FC_BATCHES = 8
+# slice 8, the sharded paths on virtual meshes of the card (its device
+# listed D times, as the JAX tests force D host devices): K24 at 2**14
+# validators over 4 shards; K25 and K26 on 16 statements over 4 shards
+# (two of them padding only); the full step at 2**20 over 2, 4 and 8
+# shards; the sharded forest, config #2's batch and the 4096-point MSM
+# over 4; the DAS verify's MSMs over 2, on 2 columns x 8 blobs
+SHARD_K24_N = 2**14
+SHARD_D = 4
+SHARD_WIDTHS = (2, 4, 8)
+SHARD_BLS_CHECK = 16
+SHARD_MSM = 4096
+SHARD_DAS_COLUMNS = 2
+SHARD_TIMED = 3
 # an Fr Montgomery product over 8 32-bit words: 2 x 64 multiply-adds of
 # two 32-bit instructions each; an inversion by r - 2 is 254 squarings
 # and 163 products
@@ -2454,6 +2493,669 @@ def forkchoice_path(dev, name, n_blocks, n_validators, batch):
     return counts
 
 
+# --- slice 8: the sharded step, forest, batch and MSM ------------------------
+
+def _virtual_mesh(dev, d: int):
+    from consensus_specs_tpu_torch import parallel as P
+
+    return P.make_mesh(devices=[dev] * d)
+
+
+def _shard_step_inputs(mesh, reg, leaves):
+    from consensus_specs_tpu_torch import parallel as P
+
+    placed = P.shard_tree(mesh, {"pubkey_root": leaves.pubkey_root,
+                                 "credentials": leaves.credentials})
+    return (P.shard_registry(mesh, reg), [p["pubkey_root"] for p in placed],
+            [p["credentials"] for p in placed])
+
+
+def rlc_shard_products(n_live: int) -> int:
+    """Montgomery products K25 must do on a shard of `n_live` live lanes:
+    K9's lanes and fold without the shared lane, its sum kept Jacobian
+    (`bls_products`' counts)."""
+    from consensus_specs_tpu_torch.ops.bls.fields import BLS_X
+
+    x_bits = abs(BLS_X).bit_length() - 1
+    x_adds = bin(abs(BLS_X)).count("1") - 1
+    lanes = max(n_live, 1)
+    return (max(n_live - 1, 0) * 43
+            + n_live * (x_bits * 41 + x_adds * 73)
+            + (x_bits + x_adds) * (lanes - 1) * 54
+            + x_bits * 36 + (x_bits + x_adds) * 54)
+
+
+def combine_products(d: int) -> int:
+    """K26's Montgomery products over d partials: d - 1 G2 additions, the
+    affine conversion, one lane's Miller loop, d - 1 Fq12 products for
+    the partials and one for the lane."""
+    from consensus_specs_tpu_torch.ops.bls.fields import BLS_X, Q
+
+    inv = (Q - 2).bit_length() - 1 + bin(Q - 2).count("1") - 1
+    x_bits = abs(BLS_X).bit_length() - 1
+    x_adds = bin(abs(BLS_X)).count("1") - 1
+    return ((d - 1) * 43 + inv + 2 + 4 * 3 + 2
+            + x_bits * (41 + 36 + 54) + x_adds * (73 + 54) + d * 54)
+
+
+def check_sharded_kernels(dev, record, int32_ops_per_s):
+    """The edge cases: K24 (the sweep's three phases on each shard) at
+    SHARD_K24_N validators over SHARD_D shards with proposers in other
+    shards, negative and out of range; K25 and K26 on SHARD_BLS_CHECK
+    statements over SHARD_D shards (two of them padding only), then K26
+    on two equal partials; K27 on an infinite and two equal partials;
+    each against its plain version on the card.  K27's shape is the main
+    path's (SHARD_D partials) and it is recorded here; K24, K25 and K26
+    are checked and recorded again at the main path's shapes
+    (`check_sweep_sharded_main`, `sharded_bls_path`).  Returns the max
+    abs errors of K24, K25 and K26 here."""
+    import random
+
+    import torch
+
+    from consensus_specs_tpu_torch import MAINNET, _build
+    from consensus_specs_tpu_torch import convert as C
+    from consensus_specs_tpu_torch import parallel as P
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls import curve as curve
+    from consensus_specs_tpu_torch.ops.bls_batch import curve as BC
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+    from consensus_specs_tpu_torch.parallel import collectives as CO
+    from consensus_specs_tpu_torch.parallel import epoch as E
+
+    # -- K24: proposers in other shards, negative, at and past n D ----------
+    n, d = SHARD_K24_N, SHARD_D
+    reg_np = C.synthetic_registry(n, seed=SEED + 8)
+    prop = reg_np["proposer_index"]
+    prop[::5] = (np.arange(0, n, 5) + n // 2) % n
+    prop[1::11] = -1
+    prop[2::13] = -(n // d) - 3
+    prop[3::17] = n
+    prop[4::19] = -n - 1
+    reg_np["exit_epoch"][::101] = 99
+    reg_np["slashed"][::997] = True
+    reg_np["withdrawable_epoch"][::997] = (
+        100 + MAINNET.epochs_per_slashings_vector // 2)
+    reg = C.registry_to_torch(reg_np, dev)
+    mesh = _virtual_mesh(dev, d)
+    regs = P.shard_registry(mesh, reg)
+    err = 0
+    for scal in (SCALARS, (100, 10, 10**13), (0, 0, 0)):
+        sc = P.EpochScalars(*scal)
+        sums = []
+        for r in regs:
+            got = E.sweep_totals_kernel(r, sc)
+            err = max(err, require_equal("epoch_sweep_sharded totals", got,
+                                         E.sweep_totals_plain(r, sc)))
+            sums.append(got)
+        sums = CO.all_reduce_sum(sums)
+        for r, t in zip(regs, sums):
+            got = E.sweep_deltas_kernel(r, sc, MAINNET, t, n)
+            want = E.sweep_deltas_plain(r, sc, MAINNET, t, n)
+            err = max(err, require_equal("epoch_sweep_sharded deltas",
+                                         list(got), list(want)))
+            recv = want[2][: r.balance.shape[0]]
+            got = E.sweep_apply_kernel(r, sc, MAINNET, t, got[0], got[1],
+                                       recv)
+            want = E.sweep_apply_plain(r, sc, MAINNET, t, want[0], want[1],
+                                       recv)
+            err = max(err, require_equal("epoch_sweep_sharded apply",
+                                         list(got), list(want)))
+        bal, eff = E.epoch_sweep_sharded(regs, sc, MAINNET)
+        err = max(err, require_equal(
+            f"epoch_sweep_sharded{scal} against K1",
+            [torch.cat(bal), torch.cat(eff)],
+            list(E.epoch_sweep_kernel(reg, sc, MAINNET))))
+    err24 = err
+    print(f"K24 epoch_sweep_sharded at n={n}, D={d}: every phase equal to "
+          f"its plain version on every shard, the sweep equal to K1 "
+          f"(3 scalar sets)")
+
+    # -- K25, K26: 16 statements over 4 shards, shards 2 and 3 padding ------
+    tasks, _ = bls_tasks(SHARD_BLS_CHECK, BLS_COMMITTEE, BLS_SEED_BASE)
+    per = B._bucket(-(-len(tasks) // d))
+    arrays, n_live = B._prepare_rlc_inputs(
+        tasks, random.Random(BLS_RNG_SEED), False, dev, lanes=d * per)
+    fs, sums, err25 = [], [], 0
+    for sh in range(d):
+        t = [B._to(a[sh * per:(sh + 1) * per], dev) for a in arrays]
+        pk_x, pk_y, sig_x, sig_y, h_x, h_y, r_bits, mask = t
+        apx, apy, a_inf, r_sig = K.rlc_scalar_mul_kernel(
+            pk_x, pk_y, sig_x, sig_y, r_bits, mask)
+        args = (apx, apy, a_inf, r_sig, h_x, h_y, torch.ones_like(mask), mask)
+        f, total = K.rlc_miller_shard_kernel(*args)
+        if sh in (0, d - 1):                  # a live shard, a padding one
+            pf, ptotal = B.rlc_miller_shard_plain(*args)
+            err25 = max(err25, _canon_equal("rlc_miller_shard f", f, pf))
+            for g, w in zip(total, ptotal):
+                err25 = max(err25, _canon_equal("rlc_miller_shard sum", g, w))
+        fs.append(f)
+        sums.append(total)
+    g_sums = tuple(CO.gather([s[k] for s in sums], dev) for k in range(3))
+    g_fs = CO.gather(fs, dev)
+    err26 = 0
+    cases = (("padding shards", g_sums, g_fs),
+             ("equal partials", tuple(torch.stack([c[0], c[0], c[1], c[2]])
+                                      for c in g_sums),
+              torch.stack([g_fs[0], g_fs[0], g_fs[1], g_fs[2]])))
+    for label, gs, gf in cases:
+        f26, s26 = K.rlc_shard_combine_kernel(gs, gf)
+        pf, ps = B.rlc_shard_combine_plain(gs, gf)
+        err26 = max(err26, _canon_equal(f"rlc_shard_combine f ({label})",
+                                        f26, pf))
+        for g, w in zip(s26, ps):
+            err26 = max(err26, _canon_equal(
+                f"rlc_shard_combine sum ({label})", g, w))
+        if label == "padding shards":
+            combined = f26
+    # the combined f against the unsharded batch's K9 f, same scalars
+    arrays1, _ = B._prepare_rlc_inputs(tasks, random.Random(BLS_RNG_SEED),
+                                       False, dev)
+    t = [B._to(a, dev) for a in arrays1]
+    apx, apy, a_inf, r_sig = K.rlc_scalar_mul_kernel(*t[:4], t[6], t[7])
+    f9, _ = K.rlc_miller_product_kernel(apx, apy, a_inf, r_sig, t[4], t[5],
+                                        torch.ones_like(t[7]), t[7])
+    require_equal("K26 f against the unsharded K9 f", combined, f9)
+    print(f"K25 rlc_miller_shard and K26 rlc_shard_combine on "
+          f"{len(tasks)} statements over {d} shards of {per} lanes: equal "
+          f"to their plain versions (a live and a padding shard; padding "
+          f"shards and equal partials); K26's f equals the unsharded K9 f")
+
+    # -- K27: partials P, P, infinity, Q ------------------------------------
+    pts = [curve.g1.mul(curve.G1_GEN, 7 + 3 * i) for i in range(2)]
+    x, y = BC.g1_affine_to_limbs(pts)
+    z = np.broadcast_to(F.ONE_MONT, x.shape).astype(np.int32)
+    rows = [0, 0, None, 1]
+    X = torch.from_numpy(np.stack([x[r if r is not None else 0]
+                                   for r in rows])).to(dev)
+    Y = torch.from_numpy(np.stack([y[r if r is not None else 0]
+                                   for r in rows])).to(dev)
+    Z = torch.from_numpy(np.stack([z[0] if r is not None else 0 * z[0]
+                                   for r in rows])).to(dev)
+    got = K.g1_shard_fold_kernel(X, Y, Z)
+    want = B.g1_shard_fold_plain(X, Y, Z)
+    err27 = max(_canon_equal("g1_shard_fold", g, w)
+                for g, w in zip(got, want))
+    expect = curve.g1.add(curve.g1.add(pts[0], pts[0]), pts[1])
+    if not curve.g1.eq_points(BC.g1_limbs_to_oracle(got), expect):
+        raise AssertionError("g1_shard_fold: not 2P + Q")
+    k27_ms = device_ms(lambda: K.g1_shard_fold_kernel(X, Y, Z), 20)
+    k27_plain = cuda_ms(lambda: B.g1_shard_fold_plain(X, Y, Z), 3)
+    p27 = (d - 1) * 16
+    record("g1_shard_fold", "consensus_specs_tpu_torch/csrc/bls_msm.cu",
+           "consensus_specs_tpu/ops/bls_batch/__init__.py:484", err27,
+           k27_ms, k27_plain, p27 * OPS_PER_MONT / int32_ops_per_s * 1e3,
+           "operations", montgomery_products=p27,
+           shape=f"D={d} partials (P, P, infinity, Q)")
+    print("K27 g1_shard_fold on (P, P, infinity, Q): equal to its plain "
+          "version and to 2P + Q")
+    _build.reset_launches()
+    return err24, err25, err26
+
+
+def check_sweep_sharded_main(dev, reg, sc, params, record, err_edges):
+    """K24 at the main path's shape: the step's registry over SHARD_D
+    shards, each phase on each shard against its plain version (the
+    kernel's and the plain deltas each reduce-scattered into their own
+    apply), then the whole sharded sweep against the plain sharded sweep;
+    timed there and recorded with the edge cases' error."""
+    import torch
+
+    from consensus_specs_tpu_torch import parallel as P
+    from consensus_specs_tpu_torch.parallel import collectives as CO
+    from consensus_specs_tpu_torch.parallel import epoch as E
+
+    n, d = reg.balance.shape[0], SHARD_D
+    regs = P.shard_registry(_virtual_mesh(dev, d), reg)
+    err = err_edges
+    sums = []
+    for r in regs:
+        got = E.sweep_totals_kernel(r, sc)
+        err = max(err, require_equal("epoch_sweep_sharded totals (main)",
+                                     got, E.sweep_totals_plain(r, sc)))
+        sums.append(got)
+    sums = CO.all_reduce_sum(sums)
+    k_deltas, p_deltas = [], []
+    for r, t in zip(regs, sums):
+        k_deltas.append(E.sweep_deltas_kernel(r, sc, params, t, n))
+        p_deltas.append(E.sweep_deltas_plain(r, sc, params, t, n))
+        err = max(err, require_equal("epoch_sweep_sharded deltas (main)",
+                                     list(k_deltas[-1]), list(p_deltas[-1])))
+    k_recv = CO.reduce_scatter_sum([a for _, _, a in k_deltas])
+    p_recv = CO.reduce_scatter_sum([a for _, _, a in p_deltas])
+    for r, t, kd, pd, kr, pr in zip(regs, sums, k_deltas, p_deltas, k_recv,
+                                    p_recv):
+        err = max(err, require_equal(
+            "epoch_sweep_sharded apply (main)",
+            list(E.sweep_apply_kernel(r, sc, params, t, kd[0], kd[1], kr)),
+            list(E.sweep_apply_plain(r, sc, params, t, pd[0], pd[1], pr))))
+    kb, ke = E.epoch_sweep_sharded(regs, sc, params)
+    pb, pe = E.epoch_sweep_sharded(regs, sc, params, plain=True)
+    err = max(err, require_equal(
+        "epoch_sweep_sharded (main) against the plain sharded sweep",
+        [torch.cat(kb), torch.cat(ke)], [torch.cat(pb), torch.cat(pe)]))
+    k24_ms = device_ms(lambda: E.epoch_sweep_sharded(regs, sc, params), 20)
+    k24_kernel_ms = sum(kernel_device_ms(
+        lambda: E.epoch_sweep_sharded(regs, sc, params),
+        [(E, "sweep_totals_kernel"), (E, "sweep_deltas_kernel"),
+         (E, "sweep_apply_kernel")]).values())
+    k24_plain = cuda_ms(
+        lambda: E.epoch_sweep_sharded(regs, sc, params, plain=True), 3)
+    k24_bytes = n * (5 * 8 + 8 + 4 + 4 * 1 + 2 * 8) + 8 * n * d
+    print(f"K24 epoch_sweep_sharded at the main path's shape, n={n} over "
+          f"D={d} shards: every phase equal to its plain version on every "
+          f"shard, the sweep equal to the plain sharded sweep; "
+          f"{k24_ms:.6f} ms device (collectives included), its kernels "
+          f"{k24_kernel_ms:.6f} ms, the plain sharded sweep "
+          f"{k24_plain:.6f} ms")
+    record("epoch_sweep_sharded",
+           "consensus_specs_tpu_torch/csrc/epoch_sweep.cu",
+           "consensus_specs_tpu/parallel/partition.py:248", err,
+           k24_kernel_ms, k24_plain, k24_bytes / HBM_BYTES_PER_S * 1e3,
+           "bytes", sweep_with_collectives_ms=k24_ms,
+           shape=f"n={n} over D={d} shards (3 launches a shard)",
+           replaces_also=["consensus_specs_tpu/parallel/epoch.py:111",
+                          "consensus_specs_tpu/parallel/epoch.py:190",
+                          "consensus_specs_tpu/parallel/merkle.py:117"])
+
+
+def sharded_step_path(dev, reg, leaves, sc, params, want, n):
+    """The full step over virtual meshes of SHARD_WIDTHS shards: every
+    shard's outputs and every replica of both roots equal to the
+    unsharded step's `want`; the launch counts of the SHARD_D run; the
+    step's time beside the unsharded one and each phase's device time."""
+    import torch
+
+    from consensus_specs_tpu_torch import _build, make_epoch_step
+    from consensus_specs_tpu_torch import parallel as P
+    from consensus_specs_tpu_torch.parallel import epoch as E
+    from consensus_specs_tpu_torch.parallel import merkle as M
+
+    single = make_epoch_step(params, device=dev)
+    counts = None
+    for d in SHARD_WIDTHS:
+        mesh = _virtual_mesh(dev, d)
+        regs, pks, creds = _shard_step_inputs(mesh, reg, leaves)
+        step = P.make_sharded_epoch_step(mesh, params)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        out = step(regs, sc, n, pks, creds)
+        torch.cuda.synchronize()
+        got = read_launches(f"sharded step D={d}")
+        if d == SHARD_D:
+            counts = got
+        for name in ("epoch_sweep_sharded", "sha256_64B", "records_root"):
+            if got.get(name, 0) <= 0:
+                raise AssertionError(f"the sharded step never launched {name}")
+        require_equal(f"sharded step D={d} balances",
+                      [torch.cat(out[0]), torch.cat(out[1])], list(want[:2]))
+        for r in out[2]:
+            require_equal(f"sharded step D={d} balances root", r, want[2])
+        for r in out[3]:
+            require_equal(f"sharded step D={d} registry root", r, want[3])
+        walls, single_walls = [], []
+        for _ in range(SHARD_TIMED):
+            for fn, acc in ((lambda: step(regs, sc, n, pks, creds), walls),
+                            (lambda: single(reg, sc, n, leaves),
+                             single_walls)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                acc.append((time.perf_counter() - t0) * 1e3)
+        recs = [P.validator_records_root(
+            P.ValidatorLeaves(pk, cr), e, r.slashed,
+            r.activation_eligibility_epoch, r.activation_epoch, r.exit_epoch,
+            r.withdrawable_epoch, M.shard_length(n, i, n // d))
+            for i, (pk, cr, e, r) in enumerate(zip(pks, creds, out[1], regs))]
+        parts = {
+            "sweep_K24": cuda_ms(
+                lambda: E.epoch_sweep_sharded(regs, sc, params), 10),
+            "balances_root_K2": cuda_ms(
+                lambda: P.balances_list_root_sharded(out[0], n), 10),
+            "records_K3": cuda_ms(lambda: [P.validator_records_root(
+                P.ValidatorLeaves(pk, cr), e, r.slashed,
+                r.activation_eligibility_epoch, r.activation_epoch,
+                r.exit_epoch, r.withdrawable_epoch)
+                for pk, cr, e, r in zip(pks, creds, out[1], regs)], 10),
+            "registry_root_K2": cuda_ms(
+                lambda: P.validator_registry_root_sharded(recs, n), 10),
+        }
+        print(f"sharded step: n={n} D={d} median_ms="
+              f"{statistics.median(walls):.4f} min_ms={min(walls):.4f} "
+              f"max_ms={max(walls):.4f} unsharded_median_ms="
+              f"{statistics.median(single_walls):.4f} (in turns, host "
+              f"clock); phases (device ms, CUDA events): "
+              + json.dumps({k: round(v, 6) for k, v in parts.items()}))
+    return counts
+
+
+def sharded_forest_path(dev, balances, n):
+    """A `ShardedMerkleForest` of the n balances over SHARD_D shards: its
+    root equal to the single forest's, a 1% dirty update (bench.py
+    worker_epoch's dirty set) applied to both, roots equal and equal to a
+    rebuild, N_PROOFS proofs across the shards verified."""
+    import torch
+
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch import convert as C
+    from consensus_specs_tpu_torch import parallel as P
+
+    _, _, dirty = C.incremental_step_inputs(n)
+    dirty_t = torch.from_numpy(dirty).to(dev)
+    bal2 = balances.clone()
+    bal2[dirty_t] += 1_000_000_007
+    chunks = P.dirty_chunks_from_validators(dirty).to(dev)
+    words = P.dirty_balance_leaves(bal2, chunks)
+    forest = P.sharded_balances_forest(balances, n,
+                                       devices=[dev] * SHARD_D)
+    single = P.balances_forest(balances, n, device=dev)
+    if forest.root_bytes() != single.root_bytes():
+        raise AssertionError("sharded forest: root differs from the forest's")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    forest.update(chunks, words)
+    root = forest.root_bytes()
+    update_ms = (time.perf_counter() - t0) * 1e3
+    rng = np.random.RandomState(SEED + 9)
+    idx = sorted(set(rng.randint(0, forest.n_chunks, N_PROOFS).tolist()))
+    proofs = forest.emit_proofs(idx)
+    torch.cuda.synchronize()
+    counts = read_launches("sharded forest")
+    for name in ("update_level", "sha256_64B", "proof_paths"):
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"the sharded forest never launched {name}")
+    single.update(chunks, words)
+    if root != single.root_bytes() or root != P.balances_forest(
+            bal2, n, device=dev).root_bytes():
+        raise AssertionError("sharded forest: root after the update differs")
+    if not all(P.verify_proof(p, root) for p in proofs):
+        raise AssertionError("sharded forest: a proof does not verify")
+    walls = []
+    for _ in range(SHARD_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forest.update(chunks, words)
+        forest.root_bytes()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"sharded forest: n={n} balances over {SHARD_D} shards "
+          f"({forest.n_chunks} chunks, local depth {forest.local_depth}); "
+          f"{len(dirty)} dirty validators ({chunks.shape[0]} chunks): root "
+          f"equal to the single forest's and a rebuild; {len(proofs)} proofs "
+          f"verified; update+root first_ms={update_ms:.4f} median_ms="
+          f"{statistics.median(walls):.4f}")
+    return counts
+
+
+def sharded_bls_path(dev, record, int32_ops_per_s, err25, err26):
+    """`batch_verify_sharded` on config #2's statements over SHARD_D
+    shards (host hashing): accepted, its K26 f equal to the unsharded
+    host-hashed batch's K9 f under the same scalars (one unsharded run,
+    timed), a wrong key rejected; SHARD_TIMED timed runs and one with
+    each kernel's device time.  K25 and K26 at this path's shapes: every
+    shard's K25 equal to the batch's partials, shard 0 against the plain
+    K25, K26 on the batch's gathered partials equal to the batch's f and
+    to the plain K26; both timed there and recorded with the edge
+    cases' errors `err25`, `err26`."""
+    import random
+
+    import torch
+
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls import curve as curve
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+
+    tasks, _ = bls_tasks(BLS_TASKS, BLS_COMMITTEE, BLS_SEED_BASE)
+    devices = [dev] * SHARD_D
+
+    def sharded(trace=None, t=tasks):
+        return B.batch_verify_sharded(t, rng=random.Random(BLS_RNG_SEED),
+                                      devices=devices, trace=trace)
+
+    def unsharded(trace=None):
+        return B.batch_verify(tasks, rng=random.Random(BLS_RNG_SEED),
+                              device=dev, device_h2c=False, trace=trace)
+
+    def timed(fn, acc, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        acc.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    walls, single_walls, tr, tr1 = [], [], {}, {}
+    _build.reset_launches()
+    ok = timed(sharded, walls, tr)
+    counts = read_launches("sharded bls batch")
+    for name in ("rlc_scalar_mul", "rlc_miller_shard", "rlc_shard_combine",
+                 "final_exp_is_one"):
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"the sharded batch never launched {name}")
+    if ok is not True:
+        raise AssertionError("the sharded batch rejected config #2")
+    # K25 and K26 at this path's shapes, on this batch's inputs
+    per = B._bucket(-(-len(tasks) // SHARD_D))
+    arrays, _ = B._prepare_rlc_inputs(tasks, random.Random(BLS_RNG_SEED),
+                                      False, dev, lanes=SHARD_D * per)
+    for sh in range(SHARD_D):
+        t = [B._to(a[sh * per:(sh + 1) * per], dev) for a in arrays]
+        pk_x, pk_y, sig_x, sig_y, h_x, h_y, r_bits, mask = t
+        apx, apy, a_inf, r_sig = K.rlc_scalar_mul_kernel(
+            pk_x, pk_y, sig_x, sig_y, r_bits, mask)
+        args = (apx, apy, a_inf, r_sig, h_x, h_y, torch.ones_like(mask), mask)
+        f, total = K.rlc_miller_shard_kernel(*args)
+        _canon_equal(f"K25 shard {sh} against the batch's partial f", f,
+                     tr["partial_f"][sh])
+        for k in range(3):
+            _canon_equal(f"K25 shard {sh} against the batch's partial sum",
+                         total[k], tr["partial_sums"][k][sh])
+        if sh == 0:
+            shard0, f0, total0 = args, f, total
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pf, ptotal = B.rlc_miller_shard_plain(*shard0)
+    torch.cuda.synchronize()
+    k25_plain = (time.perf_counter() - t0) * 1e3
+    err25 = max(err25, _canon_equal("rlc_miller_shard f (config #2)", f0,
+                                    pf))
+    for g, w in zip(total0, ptotal):
+        err25 = max(err25, _canon_equal("rlc_miller_shard sum (config #2)",
+                                        g, w))
+    k25_ms = device_ms(lambda: K.rlc_miller_shard_kernel(*shard0), 3)
+    gs, gf = tr["partial_sums"], tr["partial_f"]
+    f26, s26 = K.rlc_shard_combine_kernel(gs, gf)
+    _canon_equal("K26 against the batch's f", f26, tr["miller"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pf, ps = B.rlc_shard_combine_plain(gs, gf)
+    torch.cuda.synchronize()
+    k26_plain = (time.perf_counter() - t0) * 1e3
+    err26 = max(err26, _canon_equal("rlc_shard_combine f (config #2)", f26,
+                                    pf))
+    for g, w in zip(s26, ps):
+        err26 = max(err26, _canon_equal("rlc_shard_combine sum (config #2)",
+                                        g, w))
+    k26_ms = device_ms(lambda: K.rlc_shard_combine_kernel(gs, gf), 3)
+    live0 = int(arrays[7][:per].sum())
+    p25, p26 = rlc_shard_products(live0), combine_products(SHARD_D)
+    print(f"K25 on shard 0 of this batch ({per} lanes, {live0} live) equal "
+          f"to its plain version, every shard's K25 equal to the batch's "
+          f"partials; K26 on the batch's {SHARD_D} partials equal to its "
+          f"plain version and to the batch's f")
+    record("rlc_miller_shard", "consensus_specs_tpu_torch/csrc/bls_shard.cu",
+           "consensus_specs_tpu/ops/bls_batch/__init__.py:711", err25,
+           k25_ms, k25_plain, p25 * OPS_PER_MONT / int32_ops_per_s * 1e3,
+           "operations", montgomery_products=p25,
+           shape=f"shard 0 of config #2 over D={SHARD_D}: {per} lanes, "
+                 f"{live0} live")
+    record("rlc_shard_combine",
+           "consensus_specs_tpu_torch/csrc/bls_shard.cu",
+           "consensus_specs_tpu/ops/bls_batch/__init__.py:711", err26,
+           k26_ms, k26_plain, p26 * OPS_PER_MONT / int32_ops_per_s * 1e3,
+           "operations", montgomery_products=p26,
+           shape=f"config #2's D={SHARD_D} partials")
+
+    if timed(unsharded, single_walls, tr1) is not True:
+        raise AssertionError("the unsharded host-hashed batch rejected")
+    require_equal("sharded batch f against the unsharded K9 f",
+                  F.fq_canon(tr["miller"]), F.fq_canon(tr1["miller"]))
+    bad = list(tasks)
+    pk, msg, sig = bad[len(bad) // 3]
+    bad[len(bad) // 3] = (curve.g1.add(pk, curve.G1_GEN), msg, sig)
+    if sharded(t=bad) is not False:
+        raise AssertionError("the sharded batch accepted a wrong key")
+    for _ in range(SHARD_TIMED - 1):
+        timed(sharded, walls)
+    per = kernel_device_ms(sharded, [
+        (K, "rlc_scalar_mul_kernel"), (K, "rlc_miller_shard_kernel"),
+        (K, "rlc_shard_combine_kernel"), (K, "final_exp_is_one_kernel")])
+    device = sum(per.values())
+    wall = statistics.median(walls)
+    print(f"sharded bls batch: {len(tasks)} statements over {SHARD_D} shards "
+          f"(host hashing): accepted, f equal to the unsharded K9 f, a wrong "
+          f"key rejected; first_ms={walls[0]:.4f} median_ms={wall:.4f} "
+          f"min_ms={min(walls):.4f} max_ms={max(walls):.4f} "
+          f"unsharded_ms={single_walls[0]:.4f} (one run, between the first "
+          f"two sharded; the bls batch phase's host-hashing median is the "
+          f"unsharded median); device_ms={device:.6f} ("
+          + ", ".join(f"{k} {v:.6f}" for k, v in per.items())
+          + f") host_ms={wall - device:.4f}")
+    return counts
+
+
+def sharded_msm_path(dev):
+    """`g1_multi_exp_sharded` on bench_bls's probe at SHARD_MSM points over
+    SHARD_D shards (K13 per shard, K27): equal to the oracle's `g1.msm`
+    and to `g1_multi_exp_device`; timed beside it."""
+    import torch
+
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls import ciphersuite as cs
+    from consensus_specs_tpu_torch.ops.bls.curve import R, g1
+
+    pts = [g1.mul(cs.G1_GEN, 3 * i + 2) for i in range(SHARD_MSM)]
+    ks = [pow(5, i + 1, R) for i in range(SHARD_MSM)]
+    want = g1.msm(pts, ks)
+    devices = [dev] * SHARD_D
+
+    def timed(fn, acc):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        acc.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def sharded():
+        return B.g1_multi_exp_sharded(pts, ks, devices=devices)
+
+    def unsharded():
+        return B.g1_multi_exp_device(pts, ks, device=dev)
+
+    walls, single_walls = [], []
+    _build.reset_launches()
+    got = timed(sharded, walls)
+    counts = read_launches("sharded msm")
+    for name in ("msm_pippenger", "g1_shard_fold"):
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"the sharded MSM never launched {name}")
+    single = timed(unsharded, single_walls)
+    if not (g1.eq_points(got, want) and g1.eq_points(single, want)):
+        raise AssertionError("the sharded MSM differs from the oracle")
+    for _ in range(SHARD_TIMED - 1):
+        timed(unsharded, single_walls)
+        timed(sharded, walls)
+    print(f"sharded msm: n={SHARD_MSM} over {SHARD_D} shards (per shard "
+          f"{B._bucket(SHARD_MSM // SHARD_D)}, c="
+          f"{B._msm_window(B._bucket(SHARD_MSM // SHARD_D))}): equal to the "
+          f"oracle and g1_multi_exp_device; median_ms="
+          f"{statistics.median(walls):.4f} unsharded_median_ms="
+          f"{statistics.median(single_walls):.4f} (in turns)")
+    return counts
+
+
+def sharded_das_path(dev):
+    """The DAS verify with its MSMs over a 2-shard mesh, on the
+    closed-form matrix's first SHARD_DAS_COLUMNS columns: accepted, and
+    rejected with a tampered cell."""
+    import torch
+
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch import das as D
+    from consensus_specs_tpu_torch.das import ciphersuite as cs
+
+    com, idx, cells, proofs = cs.closed_form_matrix(
+        DAS_BLOBS, columns=range(SHARD_DAS_COLUMNS))
+    devices = [dev] * 2
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    ok = D.verify_cell_proof_batch(com, idx, cells, proofs, device=dev,
+                                   devices=devices)
+    torch.cuda.synchronize()
+    counts = read_launches("sharded das verify")
+    if ok is not True or counts.get("g1_shard_fold", 0) <= 0:
+        raise AssertionError("the DAS verify over 2 shards failed")
+    bad = list(cells)
+    bad[3] = bytes(bad[3][:-1]) + bytes([bad[3][-1] ^ 1])
+    if D.verify_cell_proof_batch(com, idx, bad, proofs, device=dev,
+                                 devices=devices) is not False:
+        raise AssertionError("the DAS verify over 2 shards accepted a "
+                             "tampered cell")
+    print(f"sharded das verify: {len(idx)} cells, MSMs over 2 shards: "
+          f"accepted; a tampered cell rejected")
+    return counts
+
+
+def real_cards_path(reg, leaves, sc, params, want, n):
+    """Steps 2-5 of slice 8 once more over real cards, when there are at
+    least two: the step, the forest, the batch and the MSM on
+    `device_ids` over a power of two of them."""
+    import random
+
+    import torch
+
+    from consensus_specs_tpu_torch import parallel as P
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls import ciphersuite as cs
+    from consensus_specs_tpu_torch.ops.bls.curve import R, g1
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"real cards: {count} card, so only virtual meshes ran")
+        return
+    ids = tuple(range(P.mesh_rung(count)))
+    mesh = P.build_mesh(device_ids=ids, require_pow2=True)
+    regs, pks, creds = _shard_step_inputs(mesh, reg, leaves)
+    out = P.make_sharded_epoch_step(mesh, params)(regs, sc, n, pks, creds)
+    require_equal("real-card step", [torch.cat([o.cpu() for o in out[0]]),
+                                     torch.cat([o.cpu() for o in out[1]])],
+                  [w.cpu() for w in want[:2]])
+    for k in (2, 3):
+        for r in out[k]:
+            require_equal("real-card step root", r.cpu(), want[k].cpu())
+    forest = P.sharded_balances_forest(want[0], n, device_ids=ids)
+    if forest.root_bytes() != P.balances_forest(
+            want[0], n, device=want[0].device).root_bytes():
+        raise AssertionError("real-card forest: root differs")
+    tasks, _ = bls_tasks(SHARD_BLS_CHECK, BLS_COMMITTEE, BLS_SEED_BASE)
+    if B.batch_verify_sharded(tasks, rng=random.Random(BLS_RNG_SEED),
+                              device_ids=ids) is not True:
+        raise AssertionError("real-card batch rejected")
+    pts = [g1.mul(cs.G1_GEN, 3 * i + 2) for i in range(64)]
+    ks = [pow(5, i + 1, R) for i in range(64)]
+    if not g1.eq_points(B.g1_multi_exp_sharded(pts, ks, device_ids=ids),
+                        g1.msm(pts, ks)):
+        raise AssertionError("real-card MSM differs")
+    print(f"real cards: step, forest, batch and MSM over device_ids={ids}: "
+          f"equal")
+
+
 def main() -> int:
     import torch
 
@@ -2484,20 +3186,25 @@ def main() -> int:
         print(f"phase {name}: {now - t_phase[0]:.3f} s")
         t_phase[0] = now
 
-    # -- build ------------------------------------------------------------
-    t0 = time.perf_counter()
-    built = _build.build()
-    print(f"build: {time.perf_counter() - t0:.3f} s "
-          f"{json.dumps({k: round(v, 3) for k, v in built.items()})}")
-    for name in _build.SOURCES:
-        log = (_build.BUILD_DIR / f"{name}.log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if ("registers" in line or "spill" in line
-                        or "entry function" in line):
-                    print(f"ptxas {name}: {line.strip()}")
-    for name in _build.SOURCES:
-        _build.load(name)
+    # -- build: one nvcc per source, all started together; every timed
+    #    phase runs after the last of them has finished ------------------
+    t_build = time.perf_counter()
+
+    def finish_build(names, built):
+        print(f"build {list(names)}: {time.perf_counter() - t_build:.3f} s "
+              f"{json.dumps({k: round(v, 3) for k, v in built.items()})}")
+        for name in names:
+            log = (_build.BUILD_DIR / f"{name}.log")
+            if log.exists():
+                for line in log.read_text().splitlines():
+                    if ("registers" in line or "spill" in line
+                            or "entry function" in line):
+                        print(f"ptxas {name}: {line.strip()}")
+        for name in names:
+            _build.load(name)
+
+    names = tuple(_build.SOURCES)
+    finish_build(names, _build.build(names))
     phase("build")
 
     # -- inputs: the flagship's synthetic mainnet registry, from SEED -----
@@ -2711,6 +3418,26 @@ def main() -> int:
     fc_counts = {name: forkchoice_path(dev, name, *shape)
                  for name, *shape in FC_PATHS}
     phase("fork choice paths")
+    # -- slice 8: the sharded paths, K24-K27 -------------------------------
+    err24, err25, err26 = check_sharded_kernels(dev, record,
+                                                int32_ops_per_s)
+    check_sweep_sharded_main(dev, reg, sc, params, record, err24)
+    phase("sharded kernels")
+    step_want = step(reg, sc, n, leaves)
+    sharded_counts = sharded_step_path(dev, reg, leaves, sc, params,
+                                       step_want, n)
+    phase("sharded step")
+    forest_counts = sharded_forest_path(dev, step_want[0], n)
+    phase("sharded forest")
+    bls_sharded_counts = sharded_bls_path(dev, record, int32_ops_per_s,
+                                          err25, err26)
+    phase("sharded bls batch")
+    msm_sharded_counts = sharded_msm_path(dev)
+    phase("sharded msm")
+    das_sharded_counts = sharded_das_path(dev)
+    phase("sharded das verify")
+    real_cards_path(reg, leaves, sc, params, step_want, n)
+    phase("real cards")
     k18_ms, k18_plain = k18_fk20["fr_fft_64x128"]
     k18_products = 64 * (128 // 2) * 7
     k18_bms, _ = fr_bound(k18_products, (2 * 64 * 128 + 64 + 1) * 132,
@@ -2728,14 +3455,20 @@ def main() -> int:
              "das_verify": das_counts, "compute_cells": cells_counts,
              "das_producer": producer_counts,
              "das_producer_cold": producer_cold_counts,
-             "das_recovery": recovery_counts, **fc_counts}
+             "das_recovery": recovery_counts, **fc_counts,
+             "sharded_step": sharded_counts, "sharded_forest": forest_counts,
+             "bls_batch_sharded": bls_sharded_counts,
+             "msm_sharded": msm_sharded_counts,
+             "das_verify_sharded": das_sharded_counts}
     # K7 holds the Fq layer (rows 7-8) and runs on no path; K15 holds the
     # Fr layer (row 14) and runs on the producer's and the recovery's paths
     field_checks = {"bls_field_ops": field_counts, "fr_field_ops": fr_counts}
     main_path = ("incremental_step", "full_step", "bls_batch_h2c",
                  "pairing_check", f"msm_{MSM_SIZES[1]}", f"msm_{MSM_SIZES[2]}",
                  "proofs", "kzg_verify", "das_verify", "compute_cells",
-                 "das_producer", "das_recovery", "forkchoice_mainnet")
+                 "das_producer", "das_recovery", "forkchoice_mainnet",
+                 "sharded_step", "sharded_forest", "bls_batch_sharded",
+                 "msm_sharded")
     for k in kernels.values():
         name = k["name"]
         by = {p: c[name] for p, c in paths.items() if c.get(name)}

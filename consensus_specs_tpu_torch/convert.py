@@ -217,3 +217,35 @@ def proto_store_from_mirror(src, device="cuda"):
     dst.current_epoch = int(src.current_epoch)
     dst.set_proposer_boost(src.proposer_boost_root)
     return dst
+
+
+# --- the sharded path --------------------------------------------------------
+
+
+def sharded_step_inputs(reg, pubkey_root, credentials, mesh):
+    """The JAX side's sharded-step inputs (the bridge's numpy registry,
+    any NamedTuple or mapping with the `RegistryArrays` fields, and the
+    (N, 8) uint32 static leaf words) -> the port's shards on `mesh`:
+    (registry shards, pubkey_root shards, credentials shards), each a
+    list of the D shards' values on their devices (`shard_tree`)."""
+    from .parallel import shard_registry, shard_tree
+
+    leaves = leaves_to_torch(pubkey_root, credentials, "cpu")
+    placed = shard_tree(mesh, {"pubkey_root": leaves.pubkey_root,
+                               "credentials": leaves.credentials})
+    return (shard_registry(mesh, registry_to_torch(reg, "cpu")),
+            [p["pubkey_root"] for p in placed],
+            [p["credentials"] for p in placed])
+
+
+def sharded_forest_to_torch(forest, devices):
+    """A port `ShardedMerkleForest` on `devices` in the state of `forest`,
+    any object with the JAX sharded forest's `shard_layers` (one layer
+    stack per shard, leaves first), `limit_depth`, `length` and
+    `n_chunks`: its layers copied, nothing hashed."""
+    from .parallel import ShardedMerkleForest
+
+    layers = [[np.asarray(lay) for lay in stack]
+              for stack in forest.shard_layers]
+    return ShardedMerkleForest.from_shard_layers(
+        layers, forest.limit_depth, forest.length, forest.n_chunks, devices)

@@ -17,7 +17,14 @@
 //       MSB first (pad lanes to infinity), then one block sums the lanes
 //       in pt_sum's tree (first half plus second, halving).
 //
-// Both keep JAX's order of point additions, so the Jacobian coordinates,
+//   K27 g1_shard_fold replaces the fold of bls_batch/__init__.py:484
+//       _msm_sharded_kernel (:513, curve_jax.py:252 pt_sum over the D
+//       gathered Jacobian partials of the sharded MSM, one K13 per
+//       shard): a load launch (the D partials to Montgomery form, the
+//       rows up to the next power of two infinity), then K14's tree
+//       launch, msm_tree_kernel as it is, over those rows.
+//
+// All keep JAX's order of point additions, so the Jacobian coordinates,
 // not only the points, equal JAX's.  What bounds them: the serial chains
 // of dependent Montgomery products (K13: B + 2^(c+1) + W (c + 1) point
 // operations on its longest thread; K14: 255 doublings and up to 255
@@ -120,6 +127,26 @@ msm_tree_kernel(Jac<Fp>* __restrict__ lanes, int m, int32_t* __restrict__ out) {
   if (tid == 0) store_jac(out, lanes[0]);
 }
 
+// --- K27 -------------------------------------------------------------------
+
+__global__ void __launch_bounds__(32)
+g1_fold_load_kernel(const int32_t* __restrict__ x,
+                    const int32_t* __restrict__ y,
+                    const int32_t* __restrict__ z, int D, int m,
+                    Jac<Fp>* __restrict__ lanes) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  Jac<Fp> p;
+  if (i < D) {
+    load_fp(p.x, x + i * BLS_NL);
+    load_fp(p.y, y + i * BLS_NL);
+    load_fp(p.z, z + i * BLS_NL);
+  } else {
+    pt_infinity(p);
+  }
+  lanes[i] = p;
+}
+
 }  // namespace
 
 extern "C" {
@@ -127,8 +154,9 @@ extern "C" {
 int bls_set_constants(const uint32_t* words, int n_words) {
   const void* kernels[] = {(const void*)msm_pippenger_kernel,
                            (const void*)msm_lanes_kernel,
-                           (const void*)msm_tree_kernel};
-  return bls_write_constants(words, n_words, kernels, 3);
+                           (const void*)msm_tree_kernel,
+                           (const void*)g1_fold_load_kernel};
+  return bls_write_constants(words, n_words, kernels, 4);
 }
 
 // scratch: at least msm_pippenger_scratch_bytes(B, W, c) bytes
@@ -165,6 +193,29 @@ int msm_double_add_launch(const int32_t* x, const int32_t* y,
   if (err != cudaSuccess) return err;
   int threads = B / 2 < 32 ? 32 : (B / 2 > 1024 ? 1024 : B / 2);
   msm_tree_kernel<<<1, threads, 0, stream>>>(lanes, B, out);
+  return cudaGetLastError();
+}
+
+// scratch: at least g1_shard_fold_scratch_bytes(D) bytes
+int64_t g1_shard_fold_scratch_bytes(int D) {
+  int64_t m = 1;
+  while (m < D) m *= 2;
+  return m * sizeof(Jac<Fp>);
+}
+
+// K27: sum of the D Jacobian partials (x, y, z: D rows each) in pt_sum's
+// tree, to out (X, Y, Z)
+int g1_shard_fold_launch(const int32_t* x, const int32_t* y, const int32_t* z,
+                         int D, void* scratch, int32_t* out,
+                         cudaStream_t stream) {
+  int m = 1;
+  while (m < D) m *= 2;
+  Jac<Fp>* lanes = (Jac<Fp>*)scratch;
+  g1_fold_load_kernel<<<(m + 31) / 32, 32, 0, stream>>>(x, y, z, D, m, lanes);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  int threads = m / 2 < 32 ? 32 : (m / 2 > 1024 ? 1024 : m / 2);
+  msm_tree_kernel<<<1, threads, 0, stream>>>(lanes, m, out);
   return cudaGetLastError();
 }
 

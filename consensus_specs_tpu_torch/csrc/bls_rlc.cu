@@ -33,7 +33,8 @@
 // line each Miller step into a global scratch row, the block multiplies
 // the lines in a tree (128 Fq12 products in 8 levels per step), and
 // thread 0 folds the product into the accumulator (the line placement,
-// the tree and the fold are `bls_miller.cuh`'s, shared with K12).  K10
+// the tree and the fold are `bls_miller.cuh`'s, shared with K12; the
+// whole body is `bls_rlc_body.cuh`'s, shared with K25 and K26).  K10
 // is one thread.
 // Every launcher returns cudaGetLastError().
 
@@ -42,6 +43,7 @@
 
 #include "bls12_381.cuh"
 #include "bls_miller.cuh"
+#include "bls_rlc_body.cuh"
 
 namespace {
 
@@ -144,62 +146,6 @@ rlc_scalar_mul_kernel(const int32_t* __restrict__ pk_x,
 
 // --- K9 --------------------------------------------------------------------
 
-struct MillerScratch {
-  Jac<Fp2>* sums;      // m >= B rows: the signature tree sum
-  Jac<Fp2>* T;         // n = B + 1 rows: the running G2 point per lane
-  Fp12* L;             // n rows: the lines of one step, then their product
-  Fp2* Q;              // n rows x 2: affine G2 argument per lane
-  Fp* P;               // n rows x 2: affine G1 argument per lane
-  uint8_t* live;       // n rows
-};
-
-// tangent at T evaluated at P = (xp, yp); T <- 2T
-__device__ __noinline__ void dbl_step(Fp12& line, Jac<Fp2>& T, const Fp& xp,
-                                      const Fp& yp) {
-  Fp2 XX, YY, ZZ, cx, cy, c0, t;
-  fp2_sqr(XX, T.x);
-  fp2_sqr(YY, T.y);
-  fp2_sqr(ZZ, T.z);
-  fp2_mul(cy, T.y, T.z);
-  fp2_mul(cy, cy, ZZ);
-  fp2_dbl(cy, cy);                          // 2 Y Z^3
-  fp2_mul(cx, XX, ZZ);
-  fp2_add(t, cx, cx);
-  fp2_add(cx, t, cx);
-  fp2_neg(cx, cx);                          // -3 X^2 Z^2
-  fp2_mul(c0, XX, T.x);
-  fp2_add(t, c0, c0);
-  fp2_add(c0, t, c0);
-  fp2_dbl(t, YY);
-  fp2_sub(c0, c0, t);                       // 3 X^3 - 2 Y^2
-  line_at(line, c0, cx, cy, xp, yp);
-  pt_double(T, T);
-}
-
-// chord through T and affine Q = (xq, yq), evaluated at P; T <- T + Q
-__device__ __noinline__ void add_step(Fp12& line, Jac<Fp2>& T, const Fp2& xq,
-                                      const Fp2& yq, const Fp& xp,
-                                      const Fp& yp) {
-  Fp2 ZZ, H, I, ZH, c0, t;
-  fp2_sqr(ZZ, T.z);
-  fp2_mul(t, xq, ZZ);
-  fp2_sub(H, T.x, t);                       // H = X - xq Z^2
-  fp2_mul(t, ZZ, T.z);
-  fp2_mul(t, yq, t);
-  fp2_sub(I, T.y, t);                       // I = Y - yq Z^3
-  fp2_mul(ZH, T.z, H);
-  fp2_mul(c0, I, xq);
-  fp2_mul(t, ZH, yq);
-  fp2_sub(c0, c0, t);                       // I xq - Z H yq
-  fp2_neg(I, I);
-  line_at(line, c0, I, ZH, xp, yp);
-  Jac<Fp2> q;
-  q.x = xq;
-  q.y = yq;
-  fp2_one(q.z);
-  pt_add(T, T, q);
-}
-
 __global__ void __launch_bounds__(256)
 rlc_miller_product_kernel(const int32_t* __restrict__ apx,
                           const int32_t* __restrict__ apy,
@@ -216,76 +162,10 @@ rlc_miller_product_kernel(const int32_t* __restrict__ apx,
                           MillerScratch s, int32_t* __restrict__ f_out,
                           int32_t* __restrict__ sum_out,
                           uint8_t* __restrict__ s_inf_out) {
-  const int tid = threadIdx.x, nt = blockDim.x, n = B + 1;
-  // the signature sum: pt_sum's tree (first half plus second), the
-  // rows past B infinity
-  for (int i = tid; i < m; i += nt) {
-    if (i < B) {
-      load_fp2(s.sums[i].x, sX + i * 2 * BLS_NL);
-      load_fp2(s.sums[i].y, sY + i * 2 * BLS_NL);
-      load_fp2(s.sums[i].z, sZ + i * 2 * BLS_NL);
-    } else {
-      pt_infinity(s.sums[i]);
-    }
-  }
-  __syncthreads();
-  for (int w = m / 2; w >= 1; w /= 2) {
-    for (int i = tid; i < w; i += nt) {
-      Jac<Fp2> a = s.sums[i], b = s.sums[i + w];
-      pt_add(a, a, b);
-      s.sums[i] = a;
-    }
-    __syncthreads();
-  }
-  // the lanes: (r_i PK_i, H_i) for i < B, then (-G1, sum)
-  for (int i = tid; i < n; i += nt) {
-    Fp2 xq, yq;
-    if (i < B) {
-      load_fp(s.P[2 * i], apx + i * BLS_NL);
-      load_fp(s.P[2 * i + 1], apy + i * BLS_NL);
-      load_fp2(xq, hx + i * 2 * BLS_NL);
-      load_fp2(yq, hy + i * 2 * BLS_NL);
-      s.live[i] = mask[i] && !a_inf[i] && h_ok[i];
-    } else {
-      load_fp(s.P[2 * i], g1x);
-      load_fp(s.P[2 * i + 1], g1y);
-      bool inf = pt_to_affine(xq, yq, s.sums[0]);
-      store_fp2(sum_out, xq);
-      store_fp2(sum_out + 2 * BLS_NL, yq);
-      *s_inf_out = inf;
-      s.live[i] = !inf;
-    }
-    s.Q[2 * i] = xq;
-    s.Q[2 * i + 1] = yq;
-    s.T[i].x = xq;
-    s.T[i].y = yq;
-    fp2_one(s.T[i].z);
-  }
-  __syncthreads();
-
-  Fp12 f;
-  fp12_one(f);
-  const uint64_t x_abs = bls_x_abs();
-  for (int bit = bls_x_top() - 1; bit >= 0; --bit) {
-    const bool add = (x_abs >> bit) & 1;
-    for (int pass = 0; pass < (add ? 2 : 1); ++pass) {
-      for (int i = tid; i < n; i += nt) {
-        Fp12 line;
-        Jac<Fp2> T = s.T[i];
-        if (pass == 0) dbl_step(line, T, s.P[2 * i], s.P[2 * i + 1]);
-        else add_step(line, T, s.Q[2 * i], s.Q[2 * i + 1], s.P[2 * i],
-                      s.P[2 * i + 1]);
-        s.T[i] = T;
-        if (!s.live[i]) fp12_one(line);
-        s.L[i] = line;
-      }
-      miller_fold(f, s.L, n, pass == 0);
-    }
-  }
-  if (tid == 0) {
-    fp12_conj(f, f);                        // negative BLS parameter
-    store_fp12(f_out, f);
-  }
+  Fp12 f = rlc_miller_body<true, true>(apx, apy, a_inf, sX, sY, sZ, hx, hy,
+                                       h_ok, mask, g1x, g1y, B, m, s, sum_out,
+                                       s_inf_out);
+  if (threadIdx.x == 0) store_fp12(f_out, f);
 }
 
 // --- K10 -------------------------------------------------------------------

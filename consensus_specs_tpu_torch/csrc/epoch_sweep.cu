@@ -20,6 +20,19 @@
 // Integer sums wrap mod 2**64 whatever their order, so the atomics give the
 // same bits as the ordered sum.
 //
+// K24, the sharded sweep (replaces parallel/partition.py:248
+// sharded_epoch_step's sweep: epoch.py:111 _total with lax.psum and the
+// proposer branch at :190-202), runs the same three kernels on each
+// shard's rows with one collective after each of the first two, which
+// the host performs (parallel/collectives.py): the shards' four sums are
+// all-reduced between (a) and (b); in (b) the proposer's share goes into
+// a zeroed accumulator of n_local * D rows, indexed by the global
+// proposer index (the drop rule over the global length), and each
+// validator's own rewards are stored; the accumulators are
+// reduce-scattered between (b) and (c), and (c) adds the shard's reduced
+// slice to its rewards.  K1's kernels and epoch_sweep_launch are the
+// `false` instances of the same bodies.
+//
 // Bound on an H100: device memory.  It must read 56 bytes of inputs and
 // write 16 per validator, and does a few dozen integer operations and
 // about ten 64-bit divisions on them.  The three passes move about 150
@@ -113,13 +126,18 @@ __device__ __forceinline__ Totals load_totals(const u64* sums, const Params& p) 
   return t;
 }
 
-__global__ void deltas_kernel(const u64* __restrict__ eff, const uint8_t* __restrict__ slashed,
+// kSharded (K24): the proposer's share goes to acc (n_prop rows, the
+// global length) and the validator's own rewards are stored; otherwise
+// (K1) both are added into rewards, whose n rows are the whole registry.
+template <bool kSharded>
+__device__ __forceinline__ void deltas_body(const u64* __restrict__ eff, const uint8_t* __restrict__ slashed,
                               const u64* __restrict__ act, const u64* __restrict__ exit_e,
                               const u64* __restrict__ wd, const uint8_t* __restrict__ src,
                               const uint8_t* __restrict__ tgt, const uint8_t* __restrict__ head,
                               const u64* __restrict__ delay, const int32_t* __restrict__ proposer,
                               long long n, Params p, Scalars sc, const u64* __restrict__ sums,
-                              u64* __restrict__ rewards, u64* __restrict__ penalties) {
+                              u64* __restrict__ rewards, u64* __restrict__ penalties,
+                              long long n_prop, u64* __restrict__ acc) {
   long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
   Totals T = load_totals(sums, p);
@@ -153,23 +171,52 @@ __global__ void deltas_kernel(const u64* __restrict__ eff, const uint8_t* __rest
     // JAX .at[idx].add(mode="drop"): a negative index counts from the end,
     // and an index still outside [0, n) is dropped
     long long j = proposer[i];
-    if (j < 0) j += n;
-    if (j >= 0 && j < n) atomicAdd(&rewards[j], prop_reward);
+    if (j < 0) j += n_prop;
+    if (j >= 0 && j < n_prop) atomicAdd(&(kSharded ? acc : rewards)[j], prop_reward);
   }
   if (in_leak && eligible) {
     pen += p.base_rewards_per_epoch * base - prop_reward;
     if (!flag[1]) pen += e * sc.finality_delay / p.inactivity_penalty_quotient;
   }
-  atomicAdd(&rewards[i], rew);
+  if (kSharded) {
+    rewards[i] = rew;
+  } else {
+    atomicAdd(&rewards[i], rew);
+  }
   penalties[i] = pen;
 }
 
+__global__ void deltas_kernel(const u64* __restrict__ eff, const uint8_t* __restrict__ slashed,
+                              const u64* __restrict__ act, const u64* __restrict__ exit_e,
+                              const u64* __restrict__ wd, const uint8_t* __restrict__ src,
+                              const uint8_t* __restrict__ tgt, const uint8_t* __restrict__ head,
+                              const u64* __restrict__ delay, const int32_t* __restrict__ proposer,
+                              long long n, Params p, Scalars sc, const u64* __restrict__ sums,
+                              u64* __restrict__ rewards, u64* __restrict__ penalties) {
+  deltas_body<false>(eff, slashed, act, exit_e, wd, src, tgt, head, delay, proposer, n, p, sc,
+                     sums, rewards, penalties, n, nullptr);
+}
+
+__global__ void deltas_sharded_kernel(
+    const u64* __restrict__ eff, const uint8_t* __restrict__ slashed, const u64* __restrict__ act,
+    const u64* __restrict__ exit_e, const u64* __restrict__ wd, const uint8_t* __restrict__ src,
+    const uint8_t* __restrict__ tgt, const uint8_t* __restrict__ head,
+    const u64* __restrict__ delay, const int32_t* __restrict__ proposer, long long n, Params p,
+    Scalars sc, const u64* __restrict__ sums, u64* __restrict__ rewards,
+    u64* __restrict__ penalties, long long n_global, u64* __restrict__ acc) {
+  deltas_body<true>(eff, slashed, act, exit_e, wd, src, tgt, head, delay, proposer, n, p, sc,
+                    sums, rewards, penalties, n_global, acc);
+}
+
 // new_balance holds the rewards and new_effective_balance the penalties on
-// entry; both are overwritten with the results.
-__global__ void apply_kernel(const u64* __restrict__ bal, const u64* __restrict__ eff,
+// entry; both are overwritten with the results.  kSharded (K24) adds the
+// shard's reduced proposer shares `received` to the rewards.
+template <bool kSharded>
+__device__ __forceinline__ void apply_body(const u64* __restrict__ bal, const u64* __restrict__ eff,
                              const uint8_t* __restrict__ slashed, const u64* __restrict__ wd,
                              long long n, Params p, Scalars sc, const u64* __restrict__ sums,
-                             u64* __restrict__ new_bal, u64* __restrict__ new_eff) {
+                             u64* __restrict__ new_bal, u64* __restrict__ new_eff,
+                             const u64* __restrict__ received) {
   long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
   u64 incr = p.effective_balance_increment;
@@ -178,7 +225,9 @@ __global__ void apply_kernel(const u64* __restrict__ bal, const u64* __restrict_
   bool genesis = cur == 0;
 
   u64 e = eff[i];
-  u64 b = bal[i] + (genesis ? 0 : new_bal[i]);
+  u64 rew = new_bal[i];
+  if (kSharded) rew += received[i];
+  u64 b = bal[i] + (genesis ? 0 : rew);
   u64 pen = genesis ? 0 : new_eff[i];
   b = pen > b ? 0 : b - pen;
 
@@ -194,6 +243,46 @@ __global__ void apply_kernel(const u64* __restrict__ bal, const u64* __restrict_
   bool move = b + down < e || e + up < b;
   new_eff[i] = move ? candidate : e;
   new_bal[i] = b;
+}
+
+__global__ void apply_kernel(const u64* __restrict__ bal, const u64* __restrict__ eff,
+                             const uint8_t* __restrict__ slashed, const u64* __restrict__ wd,
+                             long long n, Params p, Scalars sc, const u64* __restrict__ sums,
+                             u64* __restrict__ new_bal, u64* __restrict__ new_eff) {
+  apply_body<false>(bal, eff, slashed, wd, n, p, sc, sums, new_bal, new_eff, nullptr);
+}
+
+__global__ void apply_sharded_kernel(const u64* __restrict__ bal, const u64* __restrict__ eff,
+                                     const uint8_t* __restrict__ slashed,
+                                     const u64* __restrict__ wd, long long n, Params p,
+                                     Scalars sc, const u64* __restrict__ sums,
+                                     u64* __restrict__ new_bal, u64* __restrict__ new_eff,
+                                     const u64* __restrict__ received) {
+  apply_body<true>(bal, eff, slashed, wd, n, p, sc, sums, new_bal, new_eff, received);
+}
+
+Params unpack_params(const u64* params) {
+  Params p;
+  p.base_reward_factor = params[0];
+  p.base_rewards_per_epoch = params[1];
+  p.proposer_reward_quotient = params[2];
+  p.inactivity_penalty_quotient = params[3];
+  p.min_epochs_to_inactivity_penalty = params[4];
+  p.effective_balance_increment = params[5];
+  p.max_effective_balance = params[6];
+  p.hysteresis_quotient = params[7];
+  p.hysteresis_downward_multiplier = params[8];
+  p.hysteresis_upward_multiplier = params[9];
+  p.epochs_per_slashings_vector = params[10];
+  p.proportional_slashing_multiplier = params[11];
+  return p;
+}
+
+unsigned grid_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+
+unsigned totals_grid(long long n) {
+  unsigned blocks = grid_for(n);
+  return blocks < 132 * 8 ? blocks : 132 * 8;
 }
 
 }  // namespace
@@ -244,5 +333,57 @@ extern "C" int epoch_sweep_launch(const void* bal, const void* eff, const void* 
   if (err != cudaSuccess) return (int)err;
   apply_kernel<<<blocks, kThreads, 0, s>>>((const u64*)bal, e, sl, (const u64*)wd, n, p, sc,
                                            (const u64*)sums, (u64*)new_bal, (u64*)new_eff);
+  return (int)cudaGetLastError();
+}
+
+// K24 (a): the shard's four sums into sums (4 u64, zeroed here).
+extern "C" int epoch_totals_launch(const void* eff, const void* slashed, const void* act,
+                                   const void* exit_e, const void* src, const void* tgt,
+                                   const void* head, long long n, unsigned long long cur,
+                                   void* sums, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(sums, 0, 4 * sizeof(u64), s);
+  if (err != cudaSuccess) return (int)err;
+  totals_kernel<<<totals_grid(n), kThreads, 0, s>>>(
+      (const u64*)eff, (const uint8_t*)slashed, (const u64*)act, (const u64*)exit_e,
+      (const uint8_t*)src, (const uint8_t*)tgt, (const uint8_t*)head, n, cur, (u64*)sums);
+  return (int)cudaGetLastError();
+}
+
+// K24 (b): from the all-reduced sums, the shard's rewards (stored into
+// rewards) and penalties, and the proposers' shares added into acc
+// (n_global u64, zeroed here) at their global indices.
+extern "C" int epoch_deltas_sharded_launch(const void* eff, const void* slashed, const void* act,
+                                           const void* exit_e, const void* wd, const void* src,
+                                           const void* tgt, const void* head, const void* delay,
+                                           const void* proposer, long long n, long long n_global,
+                                           const u64* params, const u64* scalars,
+                                           const void* sums, void* rewards, void* penalties,
+                                           void* acc, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(acc, 0, n_global * sizeof(u64), s);
+  if (err != cudaSuccess) return (int)err;
+  Scalars sc = {scalars[0], scalars[1], scalars[2]};
+  deltas_sharded_kernel<<<grid_for(n), kThreads, 0, s>>>(
+      (const u64*)eff, (const uint8_t*)slashed, (const u64*)act, (const u64*)exit_e,
+      (const u64*)wd, (const uint8_t*)src, (const uint8_t*)tgt, (const uint8_t*)head,
+      (const u64*)delay, (const int32_t*)proposer, n, unpack_params(params), sc,
+      (const u64*)sums, (u64*)rewards, (u64*)penalties, n_global, (u64*)acc);
+  return (int)cudaGetLastError();
+}
+
+// K24 (c): new_bal holds the shard's rewards and new_eff its penalties on
+// entry (the buffers of (b)); received is its reduced slice of the
+// accumulators.  Both are overwritten with the results.
+extern "C" int epoch_apply_sharded_launch(const void* bal, const void* eff, const void* slashed,
+                                          const void* wd, long long n, const u64* params,
+                                          const u64* scalars, const void* sums,
+                                          const void* received, void* new_bal, void* new_eff,
+                                          void* stream) {
+  Scalars sc = {scalars[0], scalars[1], scalars[2]};
+  apply_sharded_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const u64*)bal, (const u64*)eff, (const uint8_t*)slashed, (const u64*)wd, n,
+      unpack_params(params), sc, (const u64*)sums, (u64*)new_bal, (u64*)new_eff,
+      (const u64*)received);
   return (int)cudaGetLastError();
 }

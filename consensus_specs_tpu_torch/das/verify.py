@@ -38,8 +38,14 @@ route, and a torch device or its name runs the device route there
 `ops.fr_batch.barycentric_eval` with the coset shift (K16), or by Horner
 on the host.
 
-The `*_async` forms, `DeviceFuture`, the sharded MSM (`n_devices`) and
-the telemetry seams are not ported yet.
+`n_devices`, `device_ids` or `devices` (a mesh, as
+`ops.bls_batch.g1_multi_exp_sharded` takes it) send the device route's
+three MSMs through the sharded MSM (K13 per shard, K27), as JAX routes
+them; the rest of the route, and MSMs of an implicit request that
+degrades to one card, stay on `device`.
+
+The `*_async` forms, `DeviceFuture` and the telemetry seams are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -134,14 +140,26 @@ def verify_cell_proof_batch_host(commitments_bytes, cell_indices, cells,
 
 
 def verify_cell_proof_batch_device(commitments_bytes, cell_indices, cells,
-                                   proofs_bytes, device="cuda",
-                                   trace=None) -> bool:
+                                   proofs_bytes, device="cuda", trace=None,
+                                   n_devices=None, device_ids=None,
+                                   devices=None) -> bool:
     """The device route on `device` (JAX `_verify_device_async`'s stages
-    in order).  With `trace` (a dict), the parsed batch, the RLI
+    in order), the MSMs sharded where `n_devices`, `device_ids` or
+    `devices` is given.  With `trace` (a dict), the parsed batch, the RLI
     coefficients, the three MSM results and each stage's host-clock
     seconds ("parse", "rli", "msm", "pairing") are stored in it."""
-    from ..ops.bls_batch import g1_multi_exp_device, pairing_check_device
+    from ..ops.bls_batch import (g1_multi_exp_device, g1_multi_exp_sharded,
+                                 pairing_check_device)
     from ..ops.fr_batch import coset_interpolate_sum
+
+    if (n_devices, device_ids, devices) != (None, None, None):
+        def msm(points, scalars):
+            return g1_multi_exp_sharded(points, scalars, n_devices=n_devices,
+                                        device_ids=device_ids,
+                                        devices=devices, device=device)
+    else:
+        def msm(points, scalars):
+            return g1_multi_exp_device(points, scalars, device=device)
 
     t0 = time.perf_counter()
     batch = cs.parse_cell_batch(commitments_bytes, cell_indices, cells,
@@ -153,11 +171,10 @@ def verify_cell_proof_batch_device(commitments_bytes, cell_indices, cells,
                                 _rli_weight_rows(batch), device=device)
     t2 = time.perf_counter()
     # LL and RLP share the proof points; RLC - RLI is one small MSM
-    ll = g1_multi_exp_device(batch.proofs, batch.r_powers, device=device)
-    rlp = g1_multi_exp_device(batch.proofs, batch.weighted_r_powers(),
-                              device=device)
+    ll = msm(batch.proofs, batch.r_powers)
+    rlp = msm(batch.proofs, batch.weighted_r_powers())
     pts, sc = _rl_terms(batch, rli)
-    rl_small = g1_multi_exp_device(pts, sc, device=device)
+    rl_small = msm(pts, sc)
     rl = _curve.g1.add(rl_small, rlp)
     t3 = time.perf_counter()
     ok = pairing_check_device([(ll, cs.setup_g2_point(N_CELL)),
@@ -171,18 +188,22 @@ def verify_cell_proof_batch_device(commitments_bytes, cell_indices, cells,
 
 
 def verify_cell_proof_batch(commitments_bytes, cell_indices, cells,
-                            proofs_bytes, device=None, trace=None) -> bool:
+                            proofs_bytes, device=None, trace=None,
+                            n_devices=None, device_ids=None,
+                            devices=None) -> bool:
     """The batch verdict of K cell statements (the fulu
     `verify_cell_kzg_proof_batch`): the device route by default, the host
-    route with `device=False` (see the module docstring).  `trace` goes
-    to the device route."""
+    route with `device=False` (see the module docstring).  `trace` and
+    the mesh arguments (`n_devices`, `device_ids`, `devices`: the sharded
+    MSMs) go to the device route."""
     dev = device_for(device)
     if dev is None:
         return verify_cell_proof_batch_host(commitments_bytes, cell_indices,
                                             cells, proofs_bytes)
-    return verify_cell_proof_batch_device(commitments_bytes, cell_indices,
-                                          cells, proofs_bytes, device=dev,
-                                          trace=trace)
+    return verify_cell_proof_batch_device(
+        commitments_bytes, cell_indices, cells, proofs_bytes, device=dev,
+        trace=trace, n_devices=n_devices, device_ids=device_ids,
+        devices=devices)
 
 
 def verify_and_isolate(commitments_bytes, cell_indices, cells,

@@ -36,8 +36,25 @@ limb; the kernels return canonical limbs, equal to `fq_canon` of the
 plain ones.  No stage falls back to another route when a kernel fails
 to build or launch.
 
-The sharded batch and MSM and the `*_async` entry points are not ported
-yet.  Nothing here is timed, faulted or telemetered.
+The sharded batch and MSM run over a mesh (`parallel.partition
+.build_mesh`: the first `n_devices` cards, the `device_ids` cards, or an
+explicit `devices` list, which may repeat a device).
+`batch_verify_sharded` splits the padded lanes into D contiguous shards
+and runs K8 and K25 on each shard's device; the D partial signature sums
+and Miller products are gathered to the mesh's first device, where K26
+folds them with the shared (-G1, sum) lane and K10 decides.
+`g1_multi_exp_sharded` runs K13 per shard and K27 over the gathered
+partials.  JAX replicates that tail on every device (`out_specs=P()`);
+the port runs it once, on the first.  An implicit request for one device
+degrades to the single-card entry point, as in JAX; an explicit
+`device_ids` or `devices` list never does:
+
+    rlc_miller_shard        K25  K9 on a shard's lanes, no shared lane
+    rlc_shard_combine       K26  the G2 fold, the shared lane, the product
+    g1_shard_fold           K27  the G1 fold of the MSM partials
+
+The `*_async` entry points are not ported yet.  Nothing here is timed,
+faulted or telemetered.
 """
 
 from __future__ import annotations
@@ -48,6 +65,7 @@ import numpy as np
 import torch
 
 from ... import resolve_device
+from ...parallel.collectives import gather, on
 from ..bls import curve as _pycurve
 from ..bls.hash_to_curve import DST_G2, hash_to_g2
 from . import curve as C
@@ -198,6 +216,46 @@ def final_exp_is_one(f, plain=False):
     return final_exp_is_one_plain(f)
 
 
+def rlc_miller_shard_plain(apx, apy, a_inf, r_sig, h_x, h_y, h_ok, mask):
+    B = apx.shape[0]
+    total = C.pt_sum(C.F2, r_sig, B)
+    f = pj.miller_product_batch(apx, apy, h_x, h_y, mask & ~a_inf & h_ok)
+    return f, total
+
+
+def rlc_miller_shard(apx, apy, a_inf, r_sig, h_x, h_y, h_ok, mask,
+                     plain=False):
+    """(f, (sX, sY, sZ)): one shard's Miller product over its B lanes
+    (no shared lane) and the Jacobian sum of its signature lanes (JAX
+    `_rlc_kernel_sharded`'s local body).  K25 on a CUDA tensor, the plain
+    version otherwise."""
+    if _use_kernel(apx, plain):
+        return K.rlc_miller_shard_kernel(apx, apy, a_inf, r_sig, h_x, h_y,
+                                         h_ok, mask)
+    return rlc_miller_shard_plain(apx, apy, a_inf, r_sig, h_x, h_y, h_ok,
+                                  mask)
+
+
+def rlc_shard_combine_plain(sums, fs):
+    D = fs.shape[0]
+    sum_sig = C.pt_sum(C.F2, sums, D)
+    total = pj._product_tree(fs, D)
+    sx, sy, s_inf = g2_to_affine_dev(tuple(c[None] for c in sum_sig))
+    g1x, g1y = K.neg_g1_affine(fs.device)
+    f_extra = pj.miller_product_batch(g1x[None], g1y[None], sx, sy, ~s_inf)
+    return tw.fq12_mul(total, f_extra), (sx, sy, s_inf)
+
+
+def rlc_shard_combine(sums, fs, plain=False):
+    """(f, (sx, sy, s_inf)) from the D shards' gathered partials: the G2
+    sum in affine form, the Miller loop of (-G1, sum), times the product
+    of the D Fq12 partials (JAX `_rlc_kernel_sharded` after its two
+    all_gathers).  K26 on a CUDA tensor, the plain version otherwise."""
+    if _use_kernel(fs, plain):
+        return K.rlc_shard_combine_kernel(sums, fs)
+    return rlc_shard_combine_plain(sums, fs)
+
+
 def _rlc_pairing_core(pk_x, pk_y, sig_x, sig_y, h_x, h_y, h_ok, r_bits, mask,
                       plain=False, trace=None):
     """K8 -> K9 -> K10 in order (JAX `_rlc_pairing_core`); returns the
@@ -257,10 +315,12 @@ def pairing_check_device(pairs, device="cuda") -> bool:
 # --- host prep ----------------------------------------------------------------
 
 
-def _prepare_rlc_inputs(tasks, rand, device_h2c=False, device="cuda"):
+def _prepare_rlc_inputs(tasks, rand, device_h2c=False, device="cuda",
+                        lanes=None):
     """Host-side prep (JAX `_prepare_rlc_inputs`): drop trivial pairs,
     hash the messages (host) or pack them as words (device hashing),
-    build limb arrays padded to the bucket ladder shape `_bucket(n_live)`.
+    build limb arrays padded to `lanes` rows, or to the bucket ladder
+    shape `_bucket(n_live)` when `lanes` is None.
 
     Returns (arrays, n_live): arrays (pk_x, pk_y, sig_x, sig_y, h_x, h_y,
     r_bits, mask) as numpy, with (h_x, h_y) replaced by one (B, 8) int32
@@ -283,7 +343,9 @@ def _prepare_rlc_inputs(tasks, rand, device_h2c=False, device="cuda"):
                                   (neg_g1, sig)], device=device)
             for pk, msg, sig in live)
 
-    B = _bucket(len(live))
+    B = _bucket(len(live)) if lanes is None else lanes
+    if B < len(live):
+        raise ValueError(f"{len(live)} live statements in {B} lanes")
     pk_x, pk_y = C.g1_affine_to_limbs([t[0] for t in live])
     if device_h2c:
         h_arrays = (h2c.msgs_to_words([t[1] for t in live]).view(np.int32),)
@@ -346,6 +408,76 @@ def batch_verify(tasks, rng=None, device="cuda", device_h2c=True,
         trace.update(inputs=inputs, h_x=h_x, h_y=h_y, h_ok=h_ok)
     return bool(_rlc_pairing_core(pk_x, pk_y, sig_x, sig_y, h_x, h_y, h_ok,
                                   r_bits, mask, trace=trace).item())
+
+
+def _mesh_for(n_devices, device_ids, devices):
+    """The mesh of a sharded call, or None where JAX degrades to the
+    single-card path: an implicit request (no `device_ids`, no `devices`)
+    for at most one of the available cards."""
+    from ...parallel.partition import available_devices, build_mesh
+
+    if devices is not None:
+        return build_mesh(devices=devices)
+    if device_ids is not None:
+        return build_mesh(device_ids=device_ids)
+    available = available_devices()
+    n = available if n_devices is None else min(int(n_devices), available)
+    if n <= 1:
+        return None
+    return build_mesh(n_devices=n)
+
+
+def _shards(arrays, mesh, per_shard: int) -> list:
+    """The padded numpy arrays split into the mesh's contiguous shards of
+    `per_shard` rows, each shard's on its device."""
+    return [tuple(_to(a[d * per_shard:(d + 1) * per_shard], dev)
+                  for a in arrays) for d, dev in enumerate(mesh.devices)]
+
+
+def batch_verify_sharded(tasks, n_devices=None, rng=None, device_ids=None,
+                         devices=None, trace=None) -> bool:
+    """`batch_verify` with the lanes sharded over a mesh (JAX
+    `batch_verify_sharded`, `:782`), the messages hashed on the host: the
+    n tasks padded to D x `_bucket(ceil(n / D))` lanes, shard d's
+    contiguous lanes through K8 and K25 on its device, the D partial
+    signature sums and Miller products gathered to the first device,
+    then K26 and K10 there; the plain versions on the CPU.  `rng` draws
+    the same scalars in the same order as `batch_verify` and JAX.  The
+    verdict is `batch_verify`'s.  An implicit one-card request runs
+    `batch_verify`.  With `trace` (a dict), the shards' partials, the
+    combined f, its final exponentiation and the verdict are stored in
+    it."""
+    if not tasks:
+        return True
+    mesh = _mesh_for(n_devices, device_ids, devices)
+    if mesh is None:
+        return batch_verify(tasks, rng=rng)
+    rand = rng if rng is not None else secrets.SystemRandom()
+    per_shard = _bucket(-(-len(tasks) // mesh.size))
+    first = mesh.devices[0]
+    arrays, n = _prepare_rlc_inputs(tasks, rand, False, first,
+                                    lanes=mesh.size * per_shard)
+    if arrays is None:
+        return bool(n)
+    fs, sums = [], []
+    for dev, t in zip(mesh.devices, _shards(arrays, mesh, per_shard)):
+        pk_x, pk_y, sig_x, sig_y, h_x, h_y, r_bits, mask = t
+        with on(dev):
+            apx, apy, a_inf, r_sig = rlc_scalar_mul(
+                pk_x, pk_y, sig_x, sig_y, r_bits, mask)
+            f, total = rlc_miller_shard(apx, apy, a_inf, r_sig, h_x, h_y,
+                                        torch.ones_like(mask), mask)
+        fs.append(f)
+        sums.append(total)
+    g_sums = tuple(gather([s[k] for s in sums], first) for k in range(3))
+    g_fs = gather(fs, first)
+    with on(first):
+        f, s_aff = rlc_shard_combine(g_sums, g_fs)
+        fe, ok = final_exp_is_one(f)
+    if trace is not None:
+        trace.update(partial_sums=g_sums, partial_f=g_fs, miller=f,
+                     sum_sig=s_aff, final_exp=fe, ok=ok)
+    return bool(ok.item())
 
 
 # --- G1 multiscalar multiplication ----------------------------------------------
@@ -452,4 +584,58 @@ def g1_multi_exp_device(points, scalars, device="cuda", algo=None):
     algo, c, arrays = prepared
     t = tuple(_to(a, dev) for a in arrays)
     out = msm_pippenger(*t, c) if algo == "pippenger" else msm_double_add(*t)
+    return C.g1_limbs_to_oracle(out)
+
+
+def g1_shard_fold_plain(x, y, z):
+    return C.pt_sum(C.F1, (x, y, z), x.shape[0])
+
+
+def g1_shard_fold(x, y, z, plain=False):
+    """The sum of D Jacobian G1 points (x, y, z, each (D, 33)) in
+    `pt_sum`'s tree (JAX `_msm_sharded_kernel`'s fold).  K27 on a CUDA
+    tensor, the plain version otherwise."""
+    if _use_kernel(x, plain):
+        return K.g1_shard_fold_kernel(x, y, z)
+    return g1_shard_fold_plain(x, y, z)
+
+
+def g1_multi_exp_sharded(points, scalars, n_devices=None, device_ids=None,
+                         devices=None, device="cuda"):
+    """`g1_multi_exp_device` over a mesh (JAX `g1_multi_exp_sharded`,
+    `:522`): the live lanes padded to D x `_bucket(ceil(live / D))` (pad
+    lanes repeat point 0 with zero digits), Pippenger with the window of
+    the per-shard count on each shard (K13), the D partials gathered to
+    the first device and summed there (K27); the plain versions on the
+    CPU.  An implicit one-card request runs `g1_multi_exp_device` on
+    `device`.  Returns an oracle Jacobian point."""
+    assert len(points) == len(scalars) and len(points) > 0
+    mesh = _mesh_for(n_devices, device_ids, devices)
+    if mesh is None:
+        return g1_multi_exp_device(points, scalars, device=device)
+    live = []
+    for p, k in zip(points, scalars):
+        k = int(k) % _pycurve.R
+        if k == 0 or _pycurve.g1.is_inf(p):
+            continue
+        live.append((p, k))
+    if not live:
+        return _pycurve.g1.infinity()
+    per_shard = _bucket(-(-len(live) // mesh.size))
+    c = _msm_window(per_shard)
+    x, y = C.g1_affine_to_limbs([p for p, _ in live])
+    digits = C.scalars_to_digits([k for _, k in live], SCALAR_BITS, c)
+    pad = mesh.size * per_shard - len(live)
+    if pad:
+        x, y = _pad_rows(x, pad), _pad_rows(y, pad)
+        digits = np.concatenate(
+            [digits, np.zeros((pad,) + digits.shape[1:], np.int32)])
+    partials = []
+    for dev, t in zip(mesh.devices, _shards((x, y, digits), mesh, per_shard)):
+        with on(dev):
+            partials.append(msm_pippenger(*t, c))
+    first = mesh.devices[0]
+    gathered = [gather([p[k] for p in partials], first) for k in range(3)]
+    with on(first):
+        out = g1_shard_fold(*gathered)
     return C.g1_limbs_to_oracle(out)

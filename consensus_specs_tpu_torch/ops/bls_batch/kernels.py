@@ -1,7 +1,8 @@
-"""Wrappers of the BLS kernels K7-K14, K19 and K20, one shared library
-per source: `csrc/bls_rlc.cu` (K7-K10), `bls_h2c.cu` (K11),
-`bls_pairing.cu` (K12), `bls_msm.cu` (K13, K14) and `g1_fft.cu` (K19,
-K20), all over the device arithmetic of `csrc/bls12_381.cuh`.
+"""Wrappers of the BLS kernels K7-K14, K19, K20 and K25-K27, one shared
+library per source: `csrc/bls_rlc.cu` (K7-K10), `bls_h2c.cu` (K11),
+`bls_pairing.cu` (K12), `bls_msm.cu` (K13, K14, K27), `g1_fft.cu` (K19,
+K20) and `bls_shard.cu` (K25, K26), all over the device arithmetic of
+`csrc/bls12_381.cuh`.
 
 Each wrapper takes and returns the port's boundary format (JAX's
 (..., 33) int32 limbs, R = 2**396; outputs canonical), checks its inputs,
@@ -100,6 +101,11 @@ _SIGNATURES = {
         + [_i32, _p],
         "final_exp_is_one_launch": [_p, _p, _p, _p],
     },
+    "bls_shard": {
+        "rlc_miller_shard_launch": [_p] * 10 + [_i32] + [_p] * 3
+        + [_i32, _p],
+        "rlc_shard_combine_launch": [_p] * 6 + [_i32] + [_p] * 5,
+    },
     "bls_h2c": {
         "h2c_set_constants": [_p, _i32],
         "hash_to_g2_launch": [_p, _i32, _p, _p, _p, _p, _p],
@@ -110,6 +116,7 @@ _SIGNATURES = {
     "bls_msm": {
         "msm_pippenger_launch": [_p] * 3 + [_i32] * 3 + [_p] * 3,
         "msm_double_add_launch": [_p] * 4 + [_i32] * 2 + [_p] * 3,
+        "g1_shard_fold_launch": [_p] * 3 + [_i32] + [_p] * 3,
     },
     "g1_fft": {
         "g1_fft_launch": [_p] * 3 + [_i32] * 3 + [_p] * 4 + [_i32]
@@ -121,7 +128,9 @@ _SIGNATURES = {
 _SCRATCH = {"rlc_miller_scratch_bytes": 1, "h2c_scratch_bytes": 1,
             "precomp_miller_scratch_bytes": 1,
             "msm_pippenger_scratch_bytes": 3,
-            "msm_double_add_scratch_bytes": 1, "g1_fft_scratch_bytes": 2}
+            "msm_double_add_scratch_bytes": 1, "g1_fft_scratch_bytes": 2,
+            "rlc_shard_scratch_bytes": 1, "rlc_combine_scratch_bytes": 1,
+            "g1_shard_fold_scratch_bytes": 1}
 
 
 @functools.cache
@@ -315,6 +324,75 @@ def rlc_miller_product_kernel(apx, apy, a_inf, r_sig, h_x, h_y, h_ok, mask):
     return f, (sxy[0], sxy[1], s_inf)
 
 
+# --- K25 and K26 ------------------------------------------------------------
+
+
+def _g2_rows(name: str, pts, n: int) -> None:
+    for c, t in zip("XYZ", pts):
+        _limbs(f"{name} {c}", t, (n, 2, 33))
+
+
+def rlc_miller_shard_kernel(apx, apy, a_inf, r_sig, h_x, h_y, h_ok, mask):
+    """K25: K9 on one shard's B lanes without the shared (-G1, sum) lane.
+    Returns (f, (sX, sY, sZ)): the conjugated Miller product over the
+    lanes live where mask & ~a_inf & h_ok, an Fq12 (2, 3, 2, 33), and the
+    Jacobian sum of the signature lanes `r_sig`, each (2, 33); all
+    canonical."""
+    B = apx.shape[0]
+    if B < 1:
+        raise ValueError("rlc_miller_shard: no lanes")
+    for name, t, shape in (("apx", apx, (B, 33)), ("apy", apy, (B, 33)),
+                           ("h_x", h_x, (B, 2, 33)), ("h_y", h_y, (B, 2, 33))):
+        _limbs(name, t, shape)
+    _g2_rows("sig", r_sig, B)
+    for name, t in (("a_inf", a_inf), ("h_ok", h_ok), ("mask", mask)):
+        _flags(name, t, B)
+    dev = apx.device
+    lib = lib_for(dev, "bls_shard")
+    scratch = torch.empty(int(lib.rlc_shard_scratch_bytes(B)),
+                          dtype=torch.uint8, device=dev)
+    f = torch.empty((2, 3, 2, 33), dtype=torch.int32, device=dev)
+    total = torch.empty((3, 2, 33), dtype=torch.int32, device=dev)
+    args = (apx, apy, a_inf, *r_sig, h_x, h_y, h_ok, mask)
+    _build.require_cuda("rlc_miller_shard", *args, scratch, f, total)
+    threads = min(256, -(-B // 32) * 32)
+    _build.check(lib.rlc_miller_shard_launch(
+        *(t.data_ptr() for t in args), B, scratch.data_ptr(), f.data_ptr(),
+        total.data_ptr(), threads, _build.stream_ptr(apx)),
+        "rlc_miller_shard")
+    _build.launches["rlc_miller_shard"] += 1
+    return f, tuple(total)
+
+
+def rlc_shard_combine_kernel(sums, fs):
+    """K26: from the D shards' Jacobian G2 signature sums `sums` ((sX, sY,
+    sZ), each (D, 2, 33)) and Miller products `fs` ((D, 2, 3, 2, 33)):
+    their G2 sum in affine form, the Miller loop of the lane (-G1, sum),
+    and f = (product of the D partials) times that lane, for K10.
+    Returns (f, (sx, sy, s_inf)) as K9 does; canonical."""
+    D = fs.shape[0]
+    if D < 1:
+        raise ValueError("rlc_shard_combine: no partials")
+    _g2_rows("sums", sums, D)
+    _limbs("fs", fs, (D, 2, 3, 2, 33))
+    dev = fs.device
+    g1x, g1y = neg_g1_affine(dev)
+    lib = lib_for(dev, "bls_shard")
+    scratch = torch.empty(int(lib.rlc_combine_scratch_bytes(D)),
+                          dtype=torch.uint8, device=dev)
+    f = torch.empty((2, 3, 2, 33), dtype=torch.int32, device=dev)
+    sxy = torch.empty((2, 1, 2, 33), dtype=torch.int32, device=dev)
+    s_inf = torch.empty(1, dtype=torch.bool, device=dev)
+    args = (*sums, fs, g1x, g1y)
+    _build.require_cuda("rlc_shard_combine", *args, scratch, f, sxy, s_inf)
+    _build.check(lib.rlc_shard_combine_launch(
+        *(t.data_ptr() for t in args), D, scratch.data_ptr(), f.data_ptr(),
+        sxy.data_ptr(), s_inf.data_ptr(), _build.stream_ptr(fs)),
+        "rlc_shard_combine")
+    _build.launches["rlc_shard_combine"] += 1
+    return f, (sxy[0], sxy[1], s_inf)
+
+
 # --- K10 -----------------------------------------------------------------
 
 
@@ -440,6 +518,27 @@ def msm_double_add_kernel(x, y, bits, mask):
         B, scratch.data_ptr(), out.data_ptr(), _build.stream_ptr(x)),
         "msm_double_add")
     _build.launches["msm_double_add"] += 1
+    return tuple(out)
+
+
+def g1_shard_fold_kernel(x, y, z):
+    """K27: the sum of D Jacobian G1 points (x, y, z, each (D, 33)) in
+    pt_sum's tree; one point (X, Y, Z), each (33,) canonical."""
+    D = x.shape[0]
+    if D < 1:
+        raise ValueError("g1_shard_fold: no partials")
+    for name, t in (("x", x), ("y", y), ("z", z)):
+        _limbs(name, t, (D, 33))
+    dev = x.device
+    lib = lib_for(dev, "bls_msm")
+    scratch = torch.empty(int(lib.g1_shard_fold_scratch_bytes(D)),
+                          dtype=torch.uint8, device=dev)
+    out = torch.empty((3, 33), dtype=torch.int32, device=dev)
+    _build.require_cuda("g1_shard_fold", x, y, z, scratch, out)
+    _build.check(lib.g1_shard_fold_launch(
+        x.data_ptr(), y.data_ptr(), z.data_ptr(), D, scratch.data_ptr(),
+        out.data_ptr(), _build.stream_ptr(x)), "g1_shard_fold")
+    _build.launches["g1_shard_fold"] += 1
     return tuple(out)
 
 

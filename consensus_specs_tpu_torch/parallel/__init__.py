@@ -1,7 +1,8 @@
-"""The epoch step on one device (counterpart of
-`consensus_specs_tpu.parallel`, unsharded): the full rebuild
-(`make_epoch_step`) and the incremental step over persisted Merkle
-forests (`IncrementalEpochStep`)."""
+"""The epoch step (counterpart of `consensus_specs_tpu.parallel`): on one
+device, the full rebuild (`make_epoch_step`) and the incremental step over
+persisted Merkle forests (`IncrementalEpochStep`); over a mesh of devices
+(`make_mesh`, `shard_registry`, `make_sharded_epoch_step`), the sharded
+step of `partition.py`, with the collectives of `collectives.py`."""
 
 from __future__ import annotations
 
@@ -11,14 +12,27 @@ from .. import resolve_device
 from ..params import EpochParams
 from .epoch import (EpochScalars, RegistryArrays, epoch_sweep,  # noqa: F401
                     epoch_sweep_plain)
+from .bridge import (pad_pow2, participation_from_pending,  # noqa: F401
+                     registry_arrays_from_state, validator_static_leaf_words)
+from .collectives import (DATA_AXIS, Mesh, all_gather,  # noqa: F401
+                          all_reduce_sum, reduce_scatter_sum)
+from .epoch import epoch_sweep_sharded  # noqa: F401
 from .incremental import (MerkleForest, SSZProof, _as_index,  # noqa: F401
-                          balances_forest, dirty_balance_leaves,
-                          dirty_chunks_from_validators, emit_proofs,
-                          merkleize_dirty, pad_dirty_idx, registry_forest,
+                          ShardedMerkleForest, balances_forest,
+                          dirty_balance_leaves, dirty_chunks_from_validators,
+                          emit_proofs, merkleize_dirty, pad_dirty_idx,
+                          registry_forest, sharded_balances_forest,
                           verify_proof)
 from .merkle import (ValidatorLeaves, balances_list_root,  # noqa: F401
-                     pack_u64_chunks, u64_leaf_words, validator_records_root,
-                     validator_records_root_plain, validator_registry_root)
+                     balances_list_root_sharded, pack_u64_chunks,
+                     u64_leaf_words, validator_records_root,
+                     validator_records_root_plain, validator_registry_root,
+                     validator_registry_root_sharded)
+from .partition import (EPOCH_STATE_RULES, REPLICATE, SHARD,  # noqa: F401
+                        available_devices, build_mesh, epoch_state_rules,
+                        epoch_step_specs, gather_tree, match_partition_rules,
+                        mesh_rung, named_tree_leaves, partitioned_epoch_step,
+                        shard_tree, sharded_epoch_step)
 
 
 def _check_device(dev, tensors) -> None:
@@ -59,6 +73,29 @@ def make_epoch_step(params: EpochParams, device="cuda", plain: bool = False):
         return new_bal, new_eff, bal_root, reg_root
 
     return step
+
+
+def make_mesh(n_devices: int | None = None, axis: str = DATA_AXIS,
+              devices=None) -> Mesh:
+    """A one-axis mesh of a power-of-two width (`partition.build_mesh`):
+    the first `n_devices` cards, or the explicit `devices`."""
+    return build_mesh(n_devices=n_devices, axis=axis, devices=devices,
+                      require_pow2=True)
+
+
+def shard_registry(mesh: Mesh, reg: RegistryArrays) -> list:
+    """Each shard's `RegistryArrays` on its device, the placements from the
+    rule table."""
+    return shard_tree(mesh, reg, EPOCH_STATE_RULES)
+
+
+def make_sharded_epoch_step(mesh: Mesh, params: EpochParams):
+    """The sharded full step (`partition.sharded_epoch_step`): step(reg
+    shards, sc, length, pubkey_root shards, credentials shards) ->
+    (new_bal shards, new_eff shards, balances_root per shard,
+    registry_root per shard), equal bit for bit to `make_epoch_step`'s
+    outputs over the concatenated registry."""
+    return sharded_epoch_step(mesh, params)
 
 
 class IncrementalEpochStep:

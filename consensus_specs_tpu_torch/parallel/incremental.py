@@ -24,11 +24,16 @@ contiguous (rows, 8) int32 buffer, level k a view of its 2**(d-k) rows
 big-endian uint32 (`_uint`); indices are int64 tensors, read as unsigned
 (a negative index is out of range).
 
+`ShardedMerkleForest` splits the data tree at a level into one
+contiguous subtree per mesh device, each a layer stack on its own device
+(K2, K4, K6 there); the few levels above the shard roots, the zero
+ladder and the length mix-in are folded on the host, as JAX folds them.
+
 Two differences from the JAX module: the port updates a forest's layers
 in place (JAX returns new arrays, which would copy the 64 MiB registry
 forest every step), and its entry points are synchronous (the
-`*_async` futures, the fault, checkpoint and quarantine seams, telemetry
-and the mesh-sharded forest are not ported yet).
+`*_async` futures, the fault, checkpoint and quarantine seams and
+telemetry are not ported yet).
 
 Each kernel wrapper runs the plain PyTorch version for CPU tensors and
 launches its kernel for CUDA tensors; `plain=True` runs the plain
@@ -50,6 +55,7 @@ from .. import _build, resolve_device
 from .._uint import from_numpy_u32, from_numpy_u64, shr64, to_numpy_u32, umin
 from ..ops.sha256 import (ZERO_HASH_WORDS, sha256_64B_words,
                           sha256_64B_words_plain)
+from .collectives import on
 from .merkle import pack_u64_chunks
 
 # the padded dirty-count ladder: a dirty set of n indices is padded to
@@ -573,3 +579,217 @@ def registry_forest(record_roots, length, limit_depth: int = 40,
     (`validator_records_root`); rows past `length` must already be zero
     chunks."""
     return MerkleForest(record_roots, limit_depth, length, device, plain)
+
+
+# --- the mesh-sharded forest -------------------------------------------------
+
+
+def _top_tree_levels(shard_roots: list) -> list:
+    """Every level of the tree above the (S,) shard roots (32-byte
+    chunks), the shard-root level first; `[-1][0]` is the data root."""
+    levels = [list(shard_roots)]
+    while len(levels[-1]) > 1:
+        row = levels[-1]
+        levels.append([hashlib.sha256(row[i] + row[i + 1]).digest()
+                       for i in range(0, len(row), 2)])
+    return levels
+
+
+def _fold_shard_roots(shard_roots: list) -> bytes:
+    """The data root over the shard roots: the one top fold, shared with
+    the proof siblings above the shards."""
+    return _top_tree_levels(shard_roots)[-1][0]
+
+
+class ShardedMerkleForest:
+    """A `MerkleForest` split over a mesh (JAX `:510`): the 2**data_depth
+    leaf data tree splits at level `local_depth` into `n_shards`
+    contiguous subtrees, shard i's layer stack on `devices[i]`.  `update`
+    dispatches only to the shards a dirty set touches; `root` and
+    `emit_proofs` fold the shard roots on the host.  The tree is the
+    single forest's, so the root equals `MerkleForest`'s over the same
+    leaves.
+
+    The mesh comes from `partition.build_mesh` (`n_shards` cards, the
+    `device_ids` cards, or the explicit `devices`, which may repeat); the
+    shard count must be a power of two (with no argument, the cards are
+    cut to `mesh_rung` of their count).  On CUDA the shards run K2, K4
+    and K6; on the CPU their plain versions."""
+
+    def __init__(self, leaf_words, limit_depth: int, length: int,
+                 n_shards: int | None = None, device_ids=None, devices=None):
+        self._setup(self._devices(n_shards, device_ids, devices),
+                    limit_depth, length)
+        first = self.devices[0]
+        words = _as_words(leaf_words, first)
+        n = words.shape[0]
+        self._size(n)
+        local = self.shard_capacity
+        self.shard_layers = []
+        for i, dev in enumerate(self.devices):
+            with on(dev):
+                leaves = torch.zeros((local, 8), dtype=torch.int32,
+                                     device=dev)
+                part = words[i * local:min((i + 1) * local, n)]
+                leaves[:part.shape[0]] = part.to(dev)
+                self.shard_layers.append(
+                    build_layers(leaves, self.local_depth))
+
+    @staticmethod
+    def _devices(n_shards, device_ids, devices) -> list:
+        from .partition import build_mesh, mesh_rung
+
+        mesh = build_mesh(n_devices=n_shards, device_ids=device_ids,
+                          devices=devices)
+        devs = list(mesh.devices)
+        if n_shards is None and device_ids is None and devices is None:
+            devs = devs[:mesh_rung(len(devs))]
+        if len(devs) & (len(devs) - 1):
+            raise ValueError(f"a sharded forest needs a power-of-two shard "
+                             f"count, got {len(devs)} (quantize with "
+                             f"mesh_rung)")
+        return devs
+
+    def _setup(self, devices, limit_depth, length):
+        self.devices = devices
+        self.n_shards = len(devices)
+        self.shard_depth = (self.n_shards - 1).bit_length()
+        self.limit_depth = int(limit_depth)
+        self.length = int(length)
+
+    def _size(self, n_chunks: int):
+        if n_chunks > 1 << self.limit_depth:
+            raise ValueError(f"{n_chunks} chunks exceed the limit 2**"
+                             f"{self.limit_depth}")
+        self.n_chunks = int(n_chunks)
+        self.data_depth = max(max(n_chunks - 1, 0).bit_length(),
+                              self.shard_depth)
+        self.local_depth = self.data_depth - self.shard_depth
+
+    @classmethod
+    def from_shard_layers(cls, shard_layers, limit_depth: int, length: int,
+                          n_chunks: int, devices) -> "ShardedMerkleForest":
+        """A forest from already-computed shard layer stacks (numpy uint32
+        or int32 tensors, leaves first: e.g. each layer of a JAX
+        `ShardedMerkleForest`'s `shard_layers`), shard i's placed on
+        `devices[i]`, with no hashing.  Shapes are checked; the content
+        is the caller's."""
+        from .partition import build_mesh
+
+        self = cls.__new__(cls)
+        self._setup(list(build_mesh(devices=devices).devices), limit_depth,
+                    length)
+        if len(shard_layers) != self.n_shards:
+            raise ValueError(f"{len(shard_layers)} layer stacks for "
+                             f"{self.n_shards} devices")
+        self._size(n_chunks)
+        depth = self.local_depth
+        self.shard_layers = []
+        for layers, dev in zip(shard_layers, self.devices):
+            if len(layers) != depth + 1 or any(
+                    tuple(lay.shape) != (1 << (depth - k), 8)
+                    for k, lay in enumerate(layers)):
+                raise ValueError(f"expected {depth + 1} halving layers of "
+                                 f"{1 << depth} leaves")
+            stack = _alloc_layers(depth, dev)
+            for dst, lay in zip(stack, layers):
+                dst.copy_(_as_words(lay, dev))
+            self.shard_layers.append(stack)
+        return self
+
+    @property
+    def capacity(self) -> int:
+        return 1 << self.data_depth
+
+    @property
+    def shard_capacity(self) -> int:
+        return 1 << self.local_depth
+
+    def update(self, dirty_idx, new_leaf_words) -> None:
+        """Write `new_leaf_words` at the GLOBAL leaf indices `dirty_idx`
+        and re-hash the touched paths, shard by shard: each touched shard
+        gets one `update_dirty` on its device (its local indices padded to
+        their rung), an untouched shard none.  Leaf words past the index
+        count are ignored; indices at or past `capacity` are dropped."""
+        idx = _as_index(dirty_idx).cpu()
+        m = idx.shape[0]
+        if m == 0:
+            return
+        words = _as_words(new_leaf_words, "cpu")
+        if words.shape[0] < m:
+            raise ValueError(f"{words.shape[0]} leaf rows for {m} indices")
+        words = words[:m]
+        shard_of = shr64(idx, self.local_depth)
+        for s, dev in enumerate(self.devices):
+            hit = shard_of == s
+            if not bool(hit.any()):
+                continue
+            local = idx[hit] & (self.shard_capacity - 1)
+            padded = pad_dirty_idx(local, self.shard_capacity)
+            leaves = torch.zeros((padded.shape[0], 8), dtype=torch.int32)
+            leaves[:local.shape[0]] = words[hit]
+            with on(dev):
+                update_dirty(self.shard_layers[s], padded.to(dev),
+                             leaves.to(dev), self.local_depth)
+
+    def _shard_roots(self) -> list:
+        return [_words_to_bytes(layers[-1][0]) for layers in self.shard_layers]
+
+    def root_bytes(self) -> bytes:
+        """The list's hash_tree_root, 32 bytes."""
+        return _finish_root(_fold_shard_roots(self._shard_roots()),
+                            self.data_depth, self.limit_depth, self.length)
+
+    def root(self) -> torch.Tensor:
+        """The list's hash_tree_root as (8,) int32 words on the CPU."""
+        return _bytes_to_words(self.root_bytes())
+
+    def emit_proofs(self, indices) -> list:
+        """SSZ single-proofs for the GLOBAL leaf chunks `indices`: one
+        gather of stored paths (K6 on CUDA) per touched shard, on its
+        device; the siblings above the shards come from the host's top
+        fold, then the zero ladder and the length chunk."""
+        indices = [int(i) for i in indices]
+        if not indices:
+            return []
+        if min(indices) < 0 or max(indices) >= self.n_chunks:
+            raise ValueError("proof index outside the list's chunks")
+        by_shard: dict = {}
+        for i in indices:
+            by_shard.setdefault(i >> self.local_depth, []).append(i)
+        top = _top_tree_levels(self._shard_roots())
+        zero_tail = list(ZERO_HASHES[self.data_depth:self.limit_depth])
+        len_chunk = _length_chunk(self.length)
+        proofs = {}
+        for s, idxs in sorted(by_shard.items()):
+            local = torch.zeros(_bucket(len(idxs)), dtype=torch.int64)
+            local[:len(idxs)] = torch.tensor(
+                [i & (self.shard_capacity - 1) for i in idxs])
+            dev = self.devices[s]
+            with on(dev):
+                leaves, paths = gather_proof_paths(
+                    self.shard_layers[s], local.to(dev), self.local_depth)
+            leaves, paths = to_numpy_u32(leaves), to_numpy_u32(paths)
+            for row, g in enumerate(idxs):
+                branch = [_words_to_bytes(paths[row, lvl])
+                          for lvl in range(self.local_depth)]
+                branch += [top[lvl][(s >> lvl) ^ 1]
+                           for lvl in range(self.shard_depth)]
+                branch += zero_tail + [len_chunk]
+                proofs[g] = SSZProof(index=g,
+                                     gindex=(2 << self.limit_depth) + g,
+                                     leaf=_words_to_bytes(leaves[row]),
+                                     branch=tuple(branch))
+        return [proofs[i] for i in indices]
+
+
+def sharded_balances_forest(balances, length, limit_depth: int = 38,
+                            n_shards: int | None = None, device_ids=None,
+                            devices=None) -> ShardedMerkleForest:
+    """A sharded forest over `List[uint64, 2**40]` from (N,) balances
+    (numpy uint64 or an int64 tensor), packed 4 to a chunk (JAX `:713`)."""
+    bal = _as_u64(balances, balances.device if isinstance(
+        balances, torch.Tensor) else "cpu")
+    return ShardedMerkleForest(pack_u64_chunks(bal), limit_depth, length,
+                               n_shards=n_shards, device_ids=device_ids,
+                               devices=devices)

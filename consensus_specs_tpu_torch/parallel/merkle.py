@@ -1,11 +1,21 @@
 """SSZ merkleization of the registry-scale lists (counterpart of
-`consensus_specs_tpu.parallel.merkle`, unsharded), with kernels K2 and K3.
+`consensus_specs_tpu.parallel.merkle`), with kernels K2 and K3.
 
 Chunks are (M, 8) big-endian uint32 words carried as int32 bit patterns
 that hold the SSZ little-endian bytes, as in the JAX package.  A tree is
 reduced one level per K2 launch on the host; the zero-subtree ladder up
 to the SSZ limit depth and the length mix-in are K2 launches of one
 message each, so the root never leaves the device.
+
+The sharded forms (`balances_list_root_sharded`,
+`validator_registry_root_sharded`) take one contiguous power-of-two run
+of the list per shard: each shard reduces its subtree on its device,
+the (D, 8) shard roots are gathered to the first shard's device
+(`parallel/collectives.py`) and folded there once, then the zero ladder
+from the depth of the whole data tree and the length mix-in (JAX
+`_sharded_list_root`, where every shard runs the fold on its all-gathered
+copy); the root is copied back to every shard's device, so it comes back
+once per shard, as JAX replicates it.
 
 Every composite takes `plain`: False runs the plain versions on CPU
 tensors and the kernels on CUDA tensors; True runs the plain versions on
@@ -24,6 +34,7 @@ from .. import _build
 from .._uint import U32_MASK, bswap32, i64, shr64, u32_to_i32, umin
 from ..ops.sha256 import (sha256_64B_words, sha256_64B_words_plain,
                           sha256_u64_leaves_kernel, zero_hash_words)
+from .collectives import gather, on
 
 
 def _u64_halves(values):
@@ -103,21 +114,65 @@ def hash_u64_leaves(values: torch.Tensor, plain: bool = False):
     return sha256_u64_leaves_kernel(values)
 
 
+def _balances_root(balances: torch.Tensor, depth: int,
+                   plain: bool) -> torch.Tensor:
+    """Root of the depth-`depth` tree over the packed chunks of the (N,)
+    int64 `balances`, ceil(N/4) a power of two."""
+    n_chunks = -(-balances.shape[0] // 4)
+    if n_chunks <= 1:
+        return subtree_root(pack_u64_chunks(balances), depth, plain)
+    if n_chunks & (n_chunks - 1):
+        raise ValueError(f"{n_chunks} chunks is not a power of two")
+    return _root_above(hash_u64_leaves(balances, plain), 1, depth, plain)
+
+
 def balances_list_root(balances: torch.Tensor, length: int,
                        limit_depth: int = 38,
                        plain: bool = False) -> torch.Tensor:
     """hash_tree_root of `List[uint64, 2**40]` (limit 2**38 chunks) over
     the (N,) int64 `balances`, padded so that ceil(N/4) is a power of two;
     `length` is the true element count."""
-    n_chunks = -(-balances.shape[0] // 4)
-    if n_chunks <= 1:
-        root = subtree_root(pack_u64_chunks(balances), limit_depth, plain)
-    else:
-        if n_chunks & (n_chunks - 1):
-            raise ValueError(f"{n_chunks} chunks is not a power of two")
-        root = _root_above(hash_u64_leaves(balances, plain), 1,
-                           limit_depth, plain)
-    return mix_in_length(root, length, plain)
+    return mix_in_length(_balances_root(balances, limit_depth, plain),
+                         length, plain)
+
+
+def _sharded_list_root(local_roots, local_depth: int, limit_depth: int,
+                       length: int, plain: bool) -> list:
+    """From each shard's (8,) subtree root of depth `local_depth`: the
+    (D, 8) roots gathered to the first shard's device and folded there by
+    log2 D pair levels, then the zero ladder from `local_depth + log2 D`
+    and the length mix-in, once.  One copy of the root per shard, on its
+    device."""
+    d = len(local_roots)
+    if d < 1 or d & (d - 1):
+        raise ValueError(f"a sharded list root needs a power-of-two mesh, "
+                         f"got {d} shards")
+    first = local_roots[0].device
+    roots = gather(local_roots, first)
+    with on(first):
+        root = mix_in_length(_root_above(roots, local_depth, limit_depth,
+                                         plain), length, plain)
+    return [root.to(r.device, copy=True) for r in local_roots]
+
+
+def balances_list_root_sharded(parts, length: int, limit_depth: int = 38,
+                               plain: bool = False) -> list:
+    """`balances_list_root` of the concatenation of `parts`, shard d's (n,)
+    int64 balances on its device (JAX `balances_list_root` under
+    `shard_map`): n must be a multiple of 4, as a shard boundary inside a
+    32-byte chunk would corrupt the root, and n / 4 a power of two.
+    Returns the root once per shard."""
+    n = parts[0].shape[0]
+    if n % 4 or any(p.shape != (n,) for p in parts):
+        raise ValueError(f"sharded balances_list_root needs equal "
+                         f"chunk-aligned shards (a multiple of 4 uint64), "
+                         f"got {[tuple(p.shape) for p in parts]}")
+    local_depth = (n // 4 - 1).bit_length()
+    local = []
+    for p in parts:
+        with on(p.device):
+            local.append(_balances_root(p, local_depth, plain))
+    return _sharded_list_root(local, local_depth, limit_depth, length, plain)
 
 
 class ValidatorLeaves(NamedTuple):
@@ -246,3 +301,30 @@ def validator_registry_root(record_roots: torch.Tensor, length: int,
     record_roots = _zero_rows_from(record_roots, length)
     return mix_in_length(subtree_root(record_roots, limit_depth, plain),
                          length, plain)
+
+
+def shard_length(length: int, shard: int, n_local: int) -> int:
+    """How many of shard `shard`'s `n_local` rows lie below the global
+    `length`: its rows are the global indices [shard n_local,
+    (shard + 1) n_local)."""
+    return min(max(int(length) - shard * n_local, 0), n_local)
+
+
+def validator_registry_root_sharded(parts, length: int, limit_depth: int = 40,
+                                    plain: bool = False) -> list:
+    """`validator_registry_root` of the concatenation of `parts`, shard
+    d's (n, 8) record roots on its device, n a power of two: rows whose
+    GLOBAL index d n + i is at or past `length` are masked to zero chunks
+    (JAX `validator_registry_root` with `axis_index`).  Returns the root
+    once per shard."""
+    n = parts[0].shape[0]
+    if n & (n - 1) or any(p.shape != (n, 8) for p in parts):
+        raise ValueError(f"sharded registry root needs equal power-of-two "
+                         f"shards, got {[tuple(p.shape) for p in parts]}")
+    local_depth = (n - 1).bit_length()
+    local = []
+    for d, p in enumerate(parts):
+        with on(p.device):
+            rows = _zero_rows_from(p, shard_length(length, d, n))
+            local.append(subtree_root(rows, local_depth, plain))
+    return _sharded_list_root(local, local_depth, limit_depth, length, plain)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K23 (and K3's gather mode) against their
+"""The port's CUDA kernels K1-K27 (and K3's gather mode) against their
 plain PyTorch versions on the card, bit for bit (the BLS kernels at
 canonical values), at small shapes.  Every test here needs an NVIDIA
 GPU and nvcc; without a card they skip.  On the card, where JAX is not
@@ -179,6 +179,8 @@ _FR_KERNELS = ("fr_field_ops", "fr_barycentric", "fr_coset_interpolate",
                "fr_fft")
 _G1FFT_KERNELS = ("g1_fft", "fk20_hext")
 _FC_KERNELS = ("fc_apply", "fc_refresh", "fc_head")
+_SHARD_KERNELS = ("epoch_sweep_sharded", "rlc_miller_shard",
+                  "rlc_shard_combine", "g1_shard_fold")
 
 
 def test_incremental_step_on_the_card(dev):
@@ -192,7 +194,7 @@ def test_incremental_step_on_the_card(dev):
     assert all(v > 0 for k, v in _build.launches.items()
                if k != "proof_paths"
                and k not in _BLS_KERNELS + _FR_KERNELS + _G1FFT_KERNELS
-               + _FC_KERNELS)
+               + _FC_KERNELS + _SHARD_KERNELS)
     want = IncrementalEpochStep(MAINNET, reg, sc, leaves, dirty, device=dev,
                                 plain=True)()
     assert all(torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, want))
@@ -850,3 +852,169 @@ def test_config1_state_transition_on_the_card(dev, monkeypatch):
           f"{statistics.median(walls[1:]):.4f} (min {min(walls[1:]):.4f}, "
           f"max {max(walls[1:]):.4f}); the spec's state_transition on the "
           f"host oracle, same blocks: {oracle_s:.4f} s per block")
+
+
+# --- slice 8: K24-K27 and the sharded paths on virtual meshes of the card ----
+
+
+@pytest.mark.parametrize("scalars", [(100, 2, 32 * 10**9), (100, 9, 10**12),
+                                     (0, 0, 0)])
+def test_epoch_sweep_sharded_kernel(dev, scalars):
+    from consensus_specs_tpu_torch import parallel as P
+    from consensus_specs_tpu_torch.parallel import collectives as CO
+
+    n, d = 1024, 4
+    reg = _registry(dev, n)
+    mesh = P.make_mesh(devices=[dev] * d)
+    regs = P.shard_registry(mesh, reg)
+    sc = EpochScalars(*scalars)
+    sums = CO.all_reduce_sum([E.sweep_totals_kernel(r, sc) for r in regs])
+    for r, s in zip(regs, sums):
+        assert torch.equal(s, CO.all_reduce_sum(
+            [E.sweep_totals_plain(q, sc) for q in regs])[0])
+        got = E.sweep_deltas_kernel(r, sc, MAINNET, s, n)
+        want = E.sweep_deltas_plain(r, sc, MAINNET, s, n)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        recv = want[2][:n // d]
+        got = E.sweep_apply_kernel(r, sc, MAINNET, s, got[0], got[1], recv)
+        want = E.sweep_apply_plain(r, sc, MAINNET, s, want[0], want[1], recv)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    _build.reset_launches()
+    bal, eff = E.epoch_sweep_sharded(regs, sc, MAINNET)
+    torch.cuda.synchronize()
+    assert _build.launches["epoch_sweep_sharded"] == 3 * d
+    want = E.epoch_sweep_kernel(reg, sc, MAINNET)
+    assert torch.equal(torch.cat(bal), want[0])
+    assert torch.equal(torch.cat(eff), want[1])
+
+
+def _shard_partials(dev, tasks, d):
+    """Each shard's K8 -> K25 outputs and its K25 inputs, over d shards."""
+    import random
+
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+
+    per = B._bucket(-(-len(tasks) // d))
+    arrays, _ = B._prepare_rlc_inputs(tasks, random.Random(5), False, dev,
+                                      lanes=d * per)
+    out = []
+    for sh in range(d):
+        t = [B._to(a[sh * per:(sh + 1) * per], dev) for a in arrays]
+        apx, apy, a_inf, r_sig = K.rlc_scalar_mul_kernel(*t[:4], t[6], t[7])
+        args = (apx, apy, a_inf, r_sig, t[4], t[5], torch.ones_like(t[7]),
+                t[7])
+        out.append((args, K.rlc_miller_shard_kernel(*args)))
+    return out
+
+
+def test_rlc_shard_kernels_against_plain(dev):
+    """K25 on a live and a padding shard, K26 on the gathered partials
+    (two padding shards) and on two equal partials, against the plain
+    versions; K26's f equal to the unsharded K9's."""
+    import random
+
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+    from consensus_specs_tpu_torch.parallel import collectives as CO
+
+    tasks = _bls_tasks(10)
+    shards = _shard_partials(dev, tasks, 4)        # 4 x 8 lanes: 2 padding
+    for sh in (0, 3):
+        args, (f, total) = shards[sh]
+        pf, ptotal = B.rlc_miller_shard_plain(*args)
+        assert torch.equal(f, _canon(pf)) and _all_equal(total, ptotal)
+    sums = tuple(CO.gather([s[1][1][k] for s in shards], dev)
+                 for k in range(3))
+    fs = CO.gather([s[1][0] for s in shards], dev)
+    f26, s26 = K.rlc_shard_combine_kernel(sums, fs)
+    pf, ps = B.rlc_shard_combine_plain(sums, fs)
+    assert torch.equal(f26, _canon(pf)) and _all_equal(s26, ps)
+    eq_sums = tuple(torch.stack([c[0], c[0], c[1], c[2]]) for c in sums)
+    eq_fs = torch.stack([fs[0], fs[0], fs[1], fs[2]])
+    got, gs = K.rlc_shard_combine_kernel(eq_sums, eq_fs)
+    pf, ps = B.rlc_shard_combine_plain(eq_sums, eq_fs)
+    assert torch.equal(got, _canon(pf)) and _all_equal(gs, ps)
+    single = {}
+    assert B.batch_verify(tasks, rng=random.Random(5), device=dev,
+                          device_h2c=False, trace=single)
+    assert torch.equal(f26, single["miller"])
+
+
+def test_g1_shard_fold_kernel(dev):
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls import curve
+    from consensus_specs_tpu_torch.ops.bls_batch import curve as BC
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+
+    pts = [curve.g1.mul(curve.G1_GEN, 5 + i) for i in range(2)]
+    x, y = BC.g1_affine_to_limbs(pts)
+    one = np.broadcast_to(F.ONE_MONT, x.shape[1:]).astype(np.int32)
+    for rows in ([0, 0, None, 1], [None, None, None], [1, 0, 0]):
+        X = torch.from_numpy(np.stack([x[r or 0] for r in rows])).to(dev)
+        Y = torch.from_numpy(np.stack([y[r or 0] for r in rows])).to(dev)
+        Z = torch.from_numpy(np.stack([one if r is not None else 0 * one
+                                       for r in rows])).to(dev)
+        got = K.g1_shard_fold_kernel(X, Y, Z)
+        assert _all_equal(got, B.g1_shard_fold_plain(X, Y, Z))
+
+
+def test_sharded_paths_on_a_virtual_mesh(dev):
+    """The sharded step, forest, batch and MSM over cuda:0 listed 4 times,
+    against the unsharded paths."""
+    import random
+
+    from consensus_specs_tpu_torch import parallel as P
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls import curve
+
+    n, d = 4096, 4
+    reg = _registry(dev, n)
+    pk, cred = C.synthetic_leaf_words(n)
+    leaves = C.leaves_to_torch(pk, cred, dev)
+    sc = EpochScalars(100, 2, 32 * 10**9)
+    want = make_epoch_step(MAINNET, device=dev)(reg, sc, n - 999, leaves)
+    mesh = P.make_mesh(devices=[dev] * d)
+    placed = P.shard_tree(mesh, {"pubkey_root": leaves.pubkey_root,
+                                 "credentials": leaves.credentials})
+    _build.reset_launches()
+    out = P.make_sharded_epoch_step(mesh, MAINNET)(
+        P.shard_registry(mesh, reg), sc, n - 999,
+        [p["pubkey_root"] for p in placed], [p["credentials"] for p in placed])
+    torch.cuda.synchronize()
+    assert _build.launches["epoch_sweep_sharded"] == 3 * d
+    assert torch.equal(torch.cat(out[0]), want[0])
+    assert torch.equal(torch.cat(out[1]), want[1])
+    assert all(torch.equal(r, want[2]) for r in out[2])
+    assert all(torch.equal(r, want[3]) for r in out[3])
+
+    forest = P.sharded_balances_forest(want[0], n, devices=[dev] * d)
+    single = P.balances_forest(want[0], n, device=dev)
+    assert forest.root_bytes() == single.root_bytes()
+    idx = torch.tensor([0, 5, 300, 1023], device=dev)
+    words = I.gather_balance_chunks(want[0] + 1, idx)
+    forest.update(idx, words)
+    single.update(idx, words)
+    root = forest.root_bytes()
+    assert root == single.root_bytes()
+    assert all(P.verify_proof(p, root)
+               for p in forest.emit_proofs([0, 255, 256, 1023]))
+
+    _build.reset_launches()
+    tasks = _bls_tasks(10)
+    assert B.batch_verify_sharded(tasks, rng=random.Random(1),
+                                  devices=[dev] * d) is True
+    assert _build.launches["rlc_miller_shard"] == d
+    assert _build.launches["rlc_shard_combine"] == 1
+    assert B.batch_verify_sharded(_bls_tasks(10, forge=9),
+                                  rng=random.Random(1),
+                                  devices=[dev] * d) is False
+
+    pts = [curve.g1.mul(curve.G1_GEN, 3 * i + 2) for i in range(40)]
+    ks = [pow(5, i + 1, curve.R) for i in range(40)]
+    got = B.g1_multi_exp_sharded(pts + pts[:8], ks + ks[:8],
+                                 devices=[dev] * d)
+    assert curve.g1.eq_points(got, curve.g1.msm(pts + pts[:8],
+                                                ks + ks[:8]))
+    assert _build.launches["g1_shard_fold"] == 1
