@@ -35,7 +35,8 @@ and PyTorch built for CUDA.  The script:
    with host hashing (K8 -> K9 -> K10) and with device hashing, its
    default (K11 -> K8 -> K9 -> K10), requires each kernel launched once,
    all 128 device hashes equal to the port oracle's, and every output
-   canonically equal to the plain version's on the card; settles the
+   canonically equal to the plain version's on the card (K11 also at 1
+   and 129 messages, row by row against the plain rows); settles the
    same statements once more through the `DeferredBatch` facade;
    requires, through both routes, a batch with one signature by a wrong
    key rejected and a batch with one-sided infinity rejected (through
@@ -106,7 +107,11 @@ and PyTorch built for CUDA.  The script:
    version and the sweep against K1; K25 (`rlc_miller_shard`) and K26
    (`rlc_shard_combine`) on 16 statements over 4 shards, two of them
    padding only, then K26 on two equal partials, K26's f equal to the
-   unsharded K9 f; K27 (`g1_shard_fold`) on (P, P, infinity, Q); then
+   unsharded K9 f; K27 (`g1_shard_fold`) on (P, P, infinity, Q); the
+   per-lane Miller body at its edge shapes, each against its plain
+   version: K9 at 1, 2, 31, 33 and 129 lanes with dead lanes of each
+   kind and at 4 lanes with every signature at infinity, K25 on one
+   lane, K26 at D = 1 and on two equal partials (D = 2); then
    K24 at the main path's shape (2**20 validators over 4 shards), each
    phase and the whole sweep against the plain sharded sweep; the full
    step at 2**20
@@ -179,7 +184,7 @@ KZG_BLOBS = 6
 KZG_TIMED = 5
 DAS_BLOBS = 8
 DAS_COLUMNS = 128
-DAS_TIMED = 3
+DAS_TIMED = 2
 DAS_SUB = 16
 DAS_BAD = 5
 FR_FIELD_N = 1024
@@ -207,6 +212,8 @@ SHARD_BLS_CHECK = 16
 SHARD_MSM = 4096
 SHARD_DAS_COLUMNS = 2
 SHARD_TIMED = 3
+# the Miller body's and K11's edge shapes, beside the main path's
+RLC_EDGE_B = (1, 2, 31, 33, 129)
 # an Fr Montgomery product over 8 32-bit words: 2 x 64 multiply-adds of
 # two 32-bit instructions each; an inversion by r - 2 is 254 squarings
 # and 163 products
@@ -1055,8 +1062,16 @@ def bls_path(dev, record, int32_ops_per_s):
                                       (h2c_trace["h_x"], h2c_trace["h_y"],
                                        h2c_trace["h_ok"])[i], p11[i])
                          for i in range(3)))
+    # K11 at B = 1 and B + 1 (the batch's messages, then the first once
+    # more), row by row against those plain rows
+    for idx in ([0], list(range(BLS_TASKS)) + [0]):
+        got = K.hash_to_g2_kernel(words[idx].contiguous())
+        err11 = max(err11, *(_canon_equal(
+            f"hash_to_g2 B={len(idx)} [{i}]", got[i], p11[i][idx])
+            for i in range(3)))
     print(f"bls K11 equals its plain version on the card at B={BLS_TASKS} "
-          f"(plain {plain_ms['hash_to_g2']:.3f} ms)")
+          f"(plain {plain_ms['hash_to_g2']:.3f} ms), and row by row at "
+          f"B=1 and B={BLS_TASKS + 1}")
     profiler_sees("hash_to_g2", lambda: K.hash_to_g2_kernel(words))
     msgs = [t[1] for t in tasks]
     products, sha_ops = h2c_work(msgs)
@@ -1103,35 +1118,53 @@ def _inv_products() -> int:
     return 384 + bin(Q - 2).count("1")
 
 
+def window_chain_products(digits) -> int:
+    """Montgomery products of `bls_h2c.cu`'s fp_pow_window over these
+    sliding-window digits: the table of 16 odd powers, a square per digit
+    after the first nonzero one, a product per later nonzero digit."""
+    k0 = next(i for i, d in enumerate(digits) if d)
+    return 16 + (len(digits) - 1 - k0) + sum(1 for d in digits[k0 + 1:] if d)
+
+
 def h2c_work(msgs):
     """(Montgomery products, SHA-256 instructions) that hash_to_g2 needs
     for these messages, replaying K11's branches on the host (which
-    x-candidate of the SVDW map is tried, which square-root candidates).
+    x-candidate of the SVDW map is tried, which square-root candidates),
+    each fixed chain counted the cheaper of two ways: binary
+    square-and-multiply, or K11's windows (an exponent by sliding windows
+    over 16 odd powers; a square root as t t^((p - 3) / 4), whose second
+    factor is also +- the root's inverse; a norm that is not a square
+    ends its candidate; the cofactor by signed windows over q .. 15q).
     expand_message_xmd once per message: b0's first block is the zero
     pad, whose compression from the IV is a constant; its second block
     holds the message (a compression with its schedule) and its third
     is template only (a constant schedule, folded); each of the 8 b_i
     is one block with its schedule and one template block, so 9
     OPS_PER_MESSAGE.  Then 3 products per 512-bit draw, the map's fixed
-    part, 5 per g(x) and each square-root candidate's exponentiations
-    and inversion, sgn0 twice; the cofactor clearing (the u0 + u1
-    addition, then H2 MSB first from the point itself: 506 doublings,
-    246 additions) and the affine conversion.  Fq2: a product 3, a
-    square 2."""
+    part, 5 per g(x) and each square-root candidate, sgn0 twice; the
+    cofactor clearing (the u0 + u1 addition, then H2 q) and the affine
+    conversion.  Fq2: a product 3, a square 2; G2 doubling 16, addition
+    43."""
     from consensus_specs_tpu_torch.ops.bls.curve import H2
     from consensus_specs_tpu_torch.ops.bls.fields import Q
     from consensus_specs_tpu_torch.ops.bls.hash_to_curve import (
         DST_G2, _SVDW_G2, hash_to_field_fq2)
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
 
-    inv = _inv_products()
-    pow14 = 384 + bin((Q + 1) // 4).count("1")
+    inv = min(_inv_products(), window_chain_products(
+        K.window_digits(Q - 2, K.H2C_EXP_WINDOW)))
+    # t^((p + 1) / 4): binary, or t t^((p - 3) / 4)
+    pow14 = min(384 + bin((Q + 1) // 4).count("1"), 1 + window_chain_products(
+        K.window_digits((Q - 3) // 4, K.H2C_EXP_WINDOW)))
+    # a candidate root's 1 / (2c): an inversion, or (c s = +-1) one product
+    inv_c = min(inv, 1)
     fp2_inv = 2 + inv + 2
     e14 = (Q + 1) // 4
 
     def is_root(r0, r1, x, y):
         return ((r0 * r0 - r1 * r1) % Q, 2 * r0 * r1 % Q) == (x, y)
 
-    def sqrt_cost(a):
+    def sqrt_cost(a, last):
         """(products, is_square) of the kernel's fp2_sqrt on a."""
         x, y = a.c0 % Q, a.c1 % Q
         if y == 0:
@@ -1139,16 +1172,24 @@ def h2c_work(msgs):
             if is_root(r, 0, x, y):
                 return pow14 + 2, True
             return 2 * (pow14 + 2), is_root(0, pow(-x % Q, e14, Q), x, y)
-        n = pow((x * x + y * y) % Q, e14, Q)
+        nrm = (x * x + y * y) % Q
+        n = pow(nrm, e14, Q)
         cost = 2 + pow14
+        if not last and n * n % Q != nrm:
+            return cost + 1, False
         for t in ((x + n) % Q, (x - n) % Q):
             c = pow(t * pow(2, -1, Q) % Q, e14, Q)
-            w = y * pow(2 * c, -1, Q) % Q if c else 0
-            cost += 1 + pow14 + 1 + inv + 1 + 2
+            w = y * pow(2 * c, -1, Q) if c else 0
+            cost += 1 + pow14 + inv_c + 1 + 2
             if is_root(c, w, x, y):
                 return cost, True
         return cost, False
 
+    h2_digits = K.signed_window_digits(H2, K.H2C_H2_WINDOW)
+    cofactor = min((H2.bit_length() - 1) * 16
+                   + (bin(H2).count("1") - 1) * 43,
+                   16 + 7 * 43 + (len(h2_digits) - 1) * 16
+                   + (sum(1 for d in h2_digits if d) - 1) * 43)
     sv = _SVDW_G2
     products = sha = 0
     for m in msgs:
@@ -1161,13 +1202,13 @@ def h2c_work(msgs):
             tv3 = tv3 if tv3.is_zero() else tv3.inv()
             tv4 = u * tv1 * (tv3 * sv.c3)
             t = (tv2.square() * tv3).square()
-            for x in (sv.c2 - tv4, sv.c2 + tv4, t * sv.c4 + sv.Z):
-                cost, square = sqrt_cost(sv.g(x))
+            for k, x in enumerate((sv.c2 - tv4, sv.c2 + tv4,
+                                   t * sv.c4 + sv.Z)):
+                cost, square = sqrt_cost(sv.g(x), k == 2)
                 products += 5 + cost
                 if square:
                     break
-        products += (43 + (H2.bit_length() - 1) * 16
-                     + (bin(H2).count("1") - 1) * 43)
+        products += 43 + cofactor
         products += fp2_inv + 2 + 9
     return products, sha
 
@@ -2694,6 +2735,109 @@ def check_sharded_kernels(dev, record, int32_ops_per_s):
     return err24, err25, err26
 
 
+def rlc_edge_lanes(n: int, seed: int, dev, sig_inf: bool = False):
+    """K9's and K25's inputs for n lanes from seeded scalars, as K8
+    leaves them: r PK affine, the signature rows Jacobian (Z != 1), H
+    affine; lane 1 masked (its signature row at infinity), lane 2 with
+    r PK at infinity (limbs 0), lane 3 with H at infinity (h_ok False,
+    limbs 0), where n reaches them; every signature row at infinity with
+    `sig_inf` (the shared lane dead)."""
+    import random
+
+    import torch
+
+    from consensus_specs_tpu_torch.ops.bls import curve
+    from consensus_specs_tpu_torch.ops.bls_batch import curve as BC
+    from consensus_specs_tpu_torch.ops.bls_batch import tower as tw
+
+    r = random.Random(seed)
+    pk = [curve.g1.mul(curve.G1_GEN, r.randrange(1, 2**64))
+          for _ in range(n)]
+    h = [curve.g2.mul(curve.G2_GEN, r.randrange(1, 2**64)) for _ in range(n)]
+    sig = [curve.g2.mul(curve.G2_GEN, r.randrange(1, 2**64))
+           for _ in range(n)]
+    mask, a_inf, h_ok = np.ones(n, bool), np.zeros(n, bool), np.ones(n, bool)
+    mask[1:2] = False
+    a_inf[2:3] = True
+    h_ok[3:4] = False
+    sig = [curve.g2.infinity() if sig_inf or not m else s
+           for s, m in zip(sig, mask)]
+    apx, apy = BC.g1_affine_to_limbs(pk)
+    hx, hy = BC.g2_affine_to_limbs(h)
+    apx[a_inf] = apy[a_inf] = 0
+    hx[~h_ok] = hy[~h_ok] = 0
+    rows = tuple(np.stack([tw.fq2_from_oracle(s[c]) for s in sig])
+                 for c in range(3))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return (t(apx), t(apy), t(a_inf), tuple(map(t, rows)), t(hx), t(hy),
+            t(h_ok), t(mask))
+
+
+def check_rlc_edge_shapes(dev) -> int:
+    """The per-lane Miller body's instances at edge shapes beside the
+    main path's, each against its plain version on the card: K9 at
+    RLC_EDGE_B lanes with dead lanes of each kind and at 4 lanes with
+    every signature at infinity; K25 on one lane; K26 at D = 1 and on
+    two equal partials.  (K9 at 128, K25 at 32 lanes
+    and on padding shards, K26 at D = 4 with equal partials and K11 at
+    1, 128 and 129 messages are held in `bls_path`,
+    `check_sharded_kernels` and `sharded_bls_path`.)  Returns the max
+    abs error."""
+    import random
+
+    import torch
+
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls import curve
+    from consensus_specs_tpu_torch.ops.bls.fields import Q
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+    from consensus_specs_tpu_torch.ops.bls_batch import tower as tw
+
+    err, t0 = 0, time.perf_counter()
+    for n, sig_inf in [(b, False) for b in RLC_EDGE_B] + [(4, True)]:
+        args = rlc_edge_lanes(n, SEED + 40 + n, dev, sig_inf)
+        f, s = K.rlc_miller_product_kernel(*args)
+        pf, ps = B.rlc_miller_product_plain(*args)
+        err = max(err, _canon_equal(f"K9 f at B={n}", f, pf),
+                  *(_canon_equal(f"K9 sum at B={n}", g, w)
+                    for g, w in zip(s, ps)))
+        if bool(s[2].item()) != sig_inf:
+            raise AssertionError(f"K9 at B={n}: s_inf {bool(s[2].item())}")
+    args = rlc_edge_lanes(1, SEED + 39, dev)
+    f, total = K.rlc_miller_shard_kernel(*args)
+    pf, ptotal = B.rlc_miller_shard_plain(*args)
+    err = max(err, _canon_equal("K25 f on one lane", f, pf),
+              *(_canon_equal("K25 sum on one lane", g, w)
+                for g, w in zip(total, ptotal)))
+    r = random.Random(SEED + 38)
+    pts = [curve.g2.mul(curve.G2_GEN, r.randrange(1, 2**64))
+           for _ in range(2)]
+    fs = torch.from_numpy(np.stack([F.to_mont(r.randrange(Q))
+                                    for _ in range(24)]).reshape(
+        2, 2, 3, 2, 33)).to(dev)
+    cases = [("D=1", pts[:1], fs[:1]),
+             ("D=2, equal partials", [pts[0]] * 2, fs[[0, 0]])]
+    for label, p, f_parts in cases:
+        sums = tuple(torch.from_numpy(np.stack(
+            [tw.fq2_from_oracle(q[c]) for q in p])).to(dev)
+            for c in range(3))
+        f, s = K.rlc_shard_combine_kernel(sums, f_parts.contiguous())
+        pf, ps = B.rlc_shard_combine_plain(sums, f_parts)
+        err = max(err, _canon_equal(f"K26 f ({label})", f, pf),
+                  *(_canon_equal(f"K26 sum ({label})", g, w)
+                    for g, w in zip(s, ps)))
+    print(f"rlc edge shapes: K9 at B={list(RLC_EDGE_B)} with dead lanes of "
+          f"each kind and at B=4 with every signature at infinity, K25 on "
+          f"one lane, K26 at D=1 and on two equal partials (D=2): equal "
+          f"to their plain versions on the card "
+          f"({time.perf_counter() - t0:.3f} s)")
+    return err
+
+
 def check_sweep_sharded_main(dev, reg, sc, params, record, err_edges):
     """K24 at the main path's shape: the step's registry over SHARD_D
     shards, each phase on each shard against its plain version (the
@@ -3423,6 +3567,11 @@ def main() -> int:
                                                 int32_ops_per_s)
     check_sweep_sharded_main(dev, reg, sc, params, record, err24)
     phase("sharded kernels")
+    err_edges = check_rlc_edge_shapes(dev)
+    kernels["rlc_miller_product"]["max_abs_err"] = max(
+        kernels["rlc_miller_product"]["max_abs_err"], err_edges)
+    err25, err26 = max(err25, err_edges), max(err26, err_edges)
+    phase("rlc edge shapes")
     step_want = step(reg, sc, n, leaves)
     sharded_counts = sharded_step_path(dev, reg, leaves, sc, params,
                                        step_want, n)

@@ -108,6 +108,11 @@ __device__ __forceinline__ void fp2_neg(Fp2& r, const Fp2& a) {
 __device__ __forceinline__ void fp2_dbl(Fp2& r, const Fp2& a) {
   fp2_add(r, a, a);
 }
+__device__ __forceinline__ void fp2_triple(Fp2& r, const Fp2& a) {
+  Fp2 t;
+  fp2_add(t, a, a);
+  fp2_add(r, t, a);
+}
 __device__ __forceinline__ void fp2_conj(Fp2& r, const Fp2& a) {
   r.c0 = a.c0;
   fp_neg(r.c1, a.c1);

@@ -25,17 +25,16 @@
 // Inputs and outputs are the port's boundary format (bls12_381.cuh):
 // (..., 33) int32 limbs, R = 2^396; outputs are canonical.
 //
-// Design, first version: the work is a chain of dependent Montgomery
+// Design: the work is a chain of dependent Montgomery
 // products per lane, and one batch has only B + 1 = 129 lanes, far less
 // than one wave of the card, so every kernel is latency-bound, not
 // issue-bound.  K8 runs one thread per lane and group (32-thread blocks,
-// one warp per SM).  K9 is one block: one thread per lane computes its
-// line each Miller step into a global scratch row, the block multiplies
-// the lines in a tree (128 Fq12 products in 8 levels per step), and
-// thread 0 folds the product into the accumulator (the line placement,
-// the tree and the fold are `bls_miller.cuh`'s, shared with K12; the
-// whole body is `bls_rlc_body.cuh`'s, shared with K25 and K26).  K10
-// is one thread.
+// one warp per SM).  K9 (`bls_rlc_body.cuh`, shared
+// with K25 and K26) is two launches: a group of 6 threads per lane, each
+// lane with its own Miller accumulator, the lanes spread over
+// ceil(B / 5) + 1 blocks (block 0 sums the signature rows and runs the
+// shared lane), then one block multiplies the lanes' values in a tree.
+// K10 is one thread.
 // Every launcher returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -146,26 +145,31 @@ rlc_scalar_mul_kernel(const int32_t* __restrict__ pk_x,
 
 // --- K9 --------------------------------------------------------------------
 
-__global__ void __launch_bounds__(256)
-rlc_miller_product_kernel(const int32_t* __restrict__ apx,
-                          const int32_t* __restrict__ apy,
-                          const uint8_t* __restrict__ a_inf,
-                          const int32_t* __restrict__ sX,
-                          const int32_t* __restrict__ sY,
-                          const int32_t* __restrict__ sZ,
-                          const int32_t* __restrict__ hx,
-                          const int32_t* __restrict__ hy,
-                          const uint8_t* __restrict__ h_ok,
-                          const uint8_t* __restrict__ mask,
-                          const int32_t* __restrict__ g1x,
-                          const int32_t* __restrict__ g1y, int B, int m,
-                          MillerScratch s, int32_t* __restrict__ f_out,
-                          int32_t* __restrict__ sum_out,
-                          uint8_t* __restrict__ s_inf_out) {
-  Fp12 f = rlc_miller_body<true, true>(apx, apy, a_inf, sX, sY, sZ, hx, hy,
-                                       h_ok, mask, g1x, g1y, B, m, s, sum_out,
-                                       s_inf_out);
-  if (threadIdx.x == 0) store_fp12(f_out, f);
+__global__ void __launch_bounds__(LANES_PER_BLOCK * LANE_G)
+rlc_miller_lanes_kernel(const int32_t* __restrict__ apx,
+                        const int32_t* __restrict__ apy,
+                        const uint8_t* __restrict__ a_inf,
+                        const int32_t* __restrict__ sX,
+                        const int32_t* __restrict__ sY,
+                        const int32_t* __restrict__ sZ,
+                        const int32_t* __restrict__ hx,
+                        const int32_t* __restrict__ hy,
+                        const uint8_t* __restrict__ h_ok,
+                        const uint8_t* __restrict__ mask,
+                        const int32_t* __restrict__ g1x,
+                        const int32_t* __restrict__ g1y, int B, int m,
+                        Jac<Fp2>* __restrict__ sums, Fp12* __restrict__ F,
+                        int32_t* __restrict__ sum_out,
+                        uint8_t* __restrict__ s_inf_out) {
+  rlc_lanes<true, true>(apx, apy, a_inf, sX, sY, sZ, hx, hy, h_ok, mask, g1x,
+                        g1y, B, m, sums, F, sum_out, s_inf_out);
+}
+
+__global__ void __launch_bounds__(FOLD_GROUPS * LANE_G)
+rlc_fold_kernel(Fp12* __restrict__ F, int n_raw,
+                const int32_t* __restrict__ extra, int n_extra,
+                int32_t* __restrict__ f_out) {
+  rlc_fold(F, n_raw, extra, n_extra, f_out);
 }
 
 // --- K10 -------------------------------------------------------------------
@@ -232,9 +236,10 @@ extern "C" {
 int bls_set_constants(const uint32_t* words, int n_words) {
   const void* kernels[] = {(const void*)bls_field_ops_kernel,
                            (const void*)rlc_scalar_mul_kernel,
-                           (const void*)rlc_miller_product_kernel,
+                           (const void*)rlc_miller_lanes_kernel,
+                           (const void*)rlc_fold_kernel,
                            (const void*)final_exp_is_one_kernel};
-  return bls_write_constants(words, n_words, kernels, 4);
+  return bls_write_constants(words, n_words, kernels, 5);
 }
 
 int bls_field_ops_launch(int op, int k, const int32_t* a, const int32_t* b,
@@ -260,40 +265,25 @@ int rlc_scalar_mul_launch(const int32_t* pk_x, const int32_t* pk_y,
 }
 
 // scratch: at least rlc_miller_scratch_bytes(B) bytes, 16-byte aligned
-int64_t rlc_miller_scratch_bytes(int B) {
-  int64_t m = 1;
-  while (m < B) m *= 2;
-  int64_t n = B + 1;
-  return m * sizeof(Jac<Fp2>) + n * (sizeof(Jac<Fp2>) + sizeof(Fp12) +
-                                     2 * sizeof(Fp2) + 2 * sizeof(Fp) + 1);
-}
+int64_t rlc_miller_scratch_bytes(int B) { return rlc_scratch_bytes(B, B + 1); }
 
+// K9: the lanes (B pairing lanes and the shared lane), then the fold
 int rlc_miller_product_launch(
     const int32_t* apx, const int32_t* apy, const uint8_t* a_inf,
     const int32_t* sX, const int32_t* sY, const int32_t* sZ,
     const int32_t* hx, const int32_t* hy, const uint8_t* h_ok,
     const uint8_t* mask, const int32_t* g1x, const int32_t* g1y, int B,
     void* scratch, int32_t* f_out, int32_t* sum_out, uint8_t* s_inf_out,
-    int threads, cudaStream_t stream) {
-  int m = 1;
-  while (m < B) m *= 2;
-  int n = B + 1;
-  char* base = (char*)scratch;
-  MillerScratch s;
-  s.sums = (Jac<Fp2>*)base;
-  base += (size_t)m * sizeof(Jac<Fp2>);
-  s.T = (Jac<Fp2>*)base;
-  base += (size_t)n * sizeof(Jac<Fp2>);
-  s.L = (Fp12*)base;
-  base += (size_t)n * sizeof(Fp12);
-  s.Q = (Fp2*)base;
-  base += (size_t)n * 2 * sizeof(Fp2);
-  s.P = (Fp*)base;
-  base += (size_t)n * 2 * sizeof(Fp);
-  s.live = (uint8_t*)base;
-  rlc_miller_product_kernel<<<1, threads, 0, stream>>>(
-      apx, apy, a_inf, sX, sY, sZ, hx, hy, h_ok, mask, g1x, g1y, B, m, s,
-      f_out, sum_out, s_inf_out);
+    cudaStream_t stream) {
+  Fp12* F = rlc_scratch_rows(scratch, B);
+  rlc_miller_lanes_kernel<<<rlc_lane_blocks(B), LANES_PER_BLOCK * LANE_G, 0,
+                            stream>>>(
+      apx, apy, a_inf, sX, sY, sZ, hx, hy, h_ok, mask, g1x, g1y, B,
+      sum_rows(B), (Jac<Fp2>*)scratch, F, sum_out, s_inf_out);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rlc_fold_kernel<<<1, FOLD_GROUPS * LANE_G, 0, stream>>>(F, B + 1, nullptr,
+                                                          0, f_out);
   return cudaGetLastError();
 }
 

@@ -72,22 +72,77 @@ def constant_words() -> np.ndarray:
     return out
 
 
+# K11's fixed chains (`bls_h2c.cu`): exponents by sliding windows over
+# the odd powers a .. a^31, the cofactor by signed windows over the odd
+# multiples q .. 15q
+H2C_EXP_WINDOW = 5
+H2C_H2_WINDOW = 5
+H2C_EXP_DIGITS = 384
+H2C_H2_DIGITS = 512
+
+
+def window_digits(e: int, w: int) -> list[int]:
+    """Left-to-right sliding-window digits of e > 0, MSB first:
+    e = sum_k d_k 2^(n - 1 - k), each d_k 0 or odd and < 2^w."""
+    bits = bin(e)[2:]
+    d = [0] * len(bits)
+    i = 0
+    while i < len(bits):
+        if bits[i] == "0":
+            i += 1
+            continue
+        j = min(i + w, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        d[j - 1] = int(bits[i:j], 2)
+        i = j
+    return d
+
+
+def signed_window_digits(k: int, w: int) -> list[int]:
+    """Width-w NAF of k > 0, MSB first: k = sum_i d_i 2^(n - 1 - i), each
+    d_i 0 or odd with |d_i| < 2^(w - 1), the first positive."""
+    out = []
+    while k:
+        d = 0
+        if k & 1:
+            d = k % (1 << w)
+            if d >= 1 << (w - 1):
+                d -= 1 << w
+            k -= d
+        out.append(d)
+        k >>= 1
+    return out[::-1]
+
+
+def _digit_words(d: list[int], size: int) -> list[int]:
+    b = np.zeros(size, dtype=np.int8)
+    b[:len(d)] = d
+    return b.view(np.uint32).tolist()
+
+
 def h2c_constant_words() -> np.ndarray:
     """The `H2cConstants` block of `bls_h2c.cu`, in its field order, as
-    uint32 words: the xmd block templates, (p + 1) / 4, the cofactor H2
-    and its bit length, 1/2, and the SVDW constants c1-c4, Z and the
-    twist's B (field elements in the kernels' Montgomery form)."""
-    h2 = _pycurve.H2
+    uint32 words: the xmd block templates, the digits of (p - 3) / 4 and
+    p - 2 (sliding windows) and of the cofactor H2 (signed windows), as
+    int8 in words, their lengths, 1/2, and the SVDW constants c1-c4, Z
+    and the twist's B (field elements in the kernels' Montgomery form)."""
+    e_sqrt = window_digits((Q - 3) // 4, H2C_EXP_WINDOW)
+    e_inv = window_digits(Q - 2, H2C_EXP_WINDOW)
+    h2 = signed_window_digits(_pycurve.H2, H2C_H2_WINDOW)
+    assert max(len(e_sqrt), len(e_inv)) <= H2C_EXP_DIGITS
+    assert len(h2) <= H2C_H2_DIGITS and h2[0] > 0
     words = (h2c._B0_TPL.ravel().tolist()
              + np.stack(h2c._BI_TPLS).ravel().tolist()
-             + _words((Q + 1) // 4)
-             + [(h2 >> (32 * i)) & 0xFFFFFFFF for i in range(16)]
-             + [h2.bit_length()] + _mont_words(pow(2, -1, Q)))
+             + _digit_words(e_sqrt, H2C_EXP_DIGITS)
+             + _digit_words(e_inv, H2C_EXP_DIGITS)
+             + _digit_words(h2, H2C_H2_DIGITS)
+             + [len(e_sqrt), len(e_inv), len(h2)] + _mont_words(pow(2, -1, Q)))
     sv = h2c._SVDW_G2
     for g in (sv.c1, sv.c2, sv.c3, sv.c4, sv.Z, _pycurve.B2):
         words += _mont_words(g.c0) + _mont_words(g.c1)
     out = np.array(words, dtype=np.uint32)
-    assert out.size == 489 and h2.bit_length() <= 512
+    assert out.size == 783
     return out
 
 
@@ -97,13 +152,11 @@ _SIGNATURES = {
     "bls_rlc": {
         "bls_field_ops_launch": [_i32, _i32, _p, _p, _p, _i64, _p],
         "rlc_scalar_mul_launch": [_p] * 6 + [_i32, _i32] + [_p] * 7,
-        "rlc_miller_product_launch": [_p] * 12 + [_i32] + [_p] * 4
-        + [_i32, _p],
+        "rlc_miller_product_launch": [_p] * 12 + [_i32] + [_p] * 5,
         "final_exp_is_one_launch": [_p, _p, _p, _p],
     },
     "bls_shard": {
-        "rlc_miller_shard_launch": [_p] * 10 + [_i32] + [_p] * 3
-        + [_i32, _p],
+        "rlc_miller_shard_launch": [_p] * 10 + [_i32] + [_p] * 4,
         "rlc_shard_combine_launch": [_p] * 6 + [_i32] + [_p] * 5,
     },
     "bls_h2c": {
@@ -315,10 +368,9 @@ def rlc_miller_product_kernel(apx, apy, a_inf, r_sig, h_x, h_y, h_ok, mask):
     s_inf = torch.empty(1, dtype=torch.bool, device=dev)
     args = (apx, apy, a_inf, *r_sig, h_x, h_y, h_ok, mask, g1x, g1y)
     _build.require_cuda("rlc_miller_product", *args, scratch, f, sxy, s_inf)
-    threads = min(256, -(-(B + 1) // 32) * 32)
     _build.check(lib.rlc_miller_product_launch(
         *(t.data_ptr() for t in args), B, scratch.data_ptr(), f.data_ptr(),
-        sxy.data_ptr(), s_inf.data_ptr(), threads, _build.stream_ptr(apx)),
+        sxy.data_ptr(), s_inf.data_ptr(), _build.stream_ptr(apx)),
         "rlc_miller_product")
     _build.launches["rlc_miller_product"] += 1
     return f, (sxy[0], sxy[1], s_inf)
@@ -355,10 +407,9 @@ def rlc_miller_shard_kernel(apx, apy, a_inf, r_sig, h_x, h_y, h_ok, mask):
     total = torch.empty((3, 2, 33), dtype=torch.int32, device=dev)
     args = (apx, apy, a_inf, *r_sig, h_x, h_y, h_ok, mask)
     _build.require_cuda("rlc_miller_shard", *args, scratch, f, total)
-    threads = min(256, -(-B // 32) * 32)
     _build.check(lib.rlc_miller_shard_launch(
         *(t.data_ptr() for t in args), B, scratch.data_ptr(), f.data_ptr(),
-        total.data_ptr(), threads, _build.stream_ptr(apx)),
+        total.data_ptr(), _build.stream_ptr(apx)),
         "rlc_miller_shard")
     _build.launches["rlc_miller_shard"] += 1
     return f, tuple(total)

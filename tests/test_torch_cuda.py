@@ -941,6 +941,161 @@ def test_rlc_shard_kernels_against_plain(dev):
     assert torch.equal(f26, single["miller"])
 
 
+def _edge_lanes(dev, n, seed, sig_inf=False, dead=True):
+    """K9's and K25's inputs for n lanes, as K8 leaves them: r PK affine,
+    the signature rows Jacobian, H affine; with `dead`, lane 1 masked (its
+    signature row at infinity), lane 2 with r PK at infinity, lane 3 with
+    H at infinity, where n reaches them; every lane masked with `dead`
+    "all"; every signature row at infinity with `sig_inf`."""
+    import random
+
+    from consensus_specs_tpu_torch.ops.bls import curve
+    from consensus_specs_tpu_torch.ops.bls_batch import curve as BC
+    from consensus_specs_tpu_torch.ops.bls_batch import tower as T
+
+    r = random.Random(seed)
+    pk = [curve.g1.mul(curve.G1_GEN, r.randrange(1, 2**64))
+          for _ in range(n)]
+    h = [curve.g2.mul(curve.G2_GEN, r.randrange(1, 2**64)) for _ in range(n)]
+    sig = [curve.g2.mul(curve.G2_GEN, r.randrange(1, 2**64))
+           for _ in range(n)]
+    mask, a_inf, h_ok = np.ones(n, bool), np.zeros(n, bool), np.ones(n, bool)
+    if dead == "all":
+        mask[:] = False
+    elif dead:
+        mask[1:2] = False
+        a_inf[2:3] = True
+        h_ok[3:4] = False
+    sig = [curve.g2.infinity() if sig_inf or not m else s
+           for s, m in zip(sig, mask)]
+    apx, apy = BC.g1_affine_to_limbs(pk)
+    hx, hy = BC.g2_affine_to_limbs(h)
+    apx[a_inf] = apy[a_inf] = 0
+    hx[~h_ok] = hy[~h_ok] = 0
+    rows = tuple(np.stack([T.fq2_from_oracle(s[c]) for s in sig])
+                 for c in range(3))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return (t(apx), t(apy), t(a_inf), tuple(map(t, rows)), t(hx), t(hy),
+            t(h_ok), t(mask))
+
+
+@pytest.mark.parametrize("n,sig_inf", [(1, False), (2, False), (31, False),
+                                       (33, False), (128, False),
+                                       (129, False), (4, True)])
+def test_rlc_miller_product_edge_shapes(dev, n, sig_inf):
+    """K9 (one group of threads per lane, the lanes over many blocks, then
+    the fold) at lane counts around its blocks of 5 lanes and the path's
+    128, with dead lanes of each kind, and with every signature at
+    infinity (the shared lane dead): equal to its plain version."""
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+
+    args = _edge_lanes(dev, n, 60 + n, sig_inf)
+    before = _build.launches["rlc_miller_product"]
+    f, s = K.rlc_miller_product_kernel(*args)
+    assert _build.launches["rlc_miller_product"] == before + 1
+    pf, ps = B.rlc_miller_product_plain(*args)
+    assert torch.equal(f, _canon(pf)) and _all_equal(s, ps)
+    assert bool(s[2].item()) == sig_inf
+
+
+@pytest.mark.parametrize("n,dead", [(1, False), (32, True), (8, "all")])
+def test_rlc_miller_shard_edge_shapes(dev, n, dead):
+    """K25 on one lane, on a shard of 32 lanes with dead lanes of each
+    kind, and on an empty shard (every lane padding): equal to its plain
+    version."""
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+    from consensus_specs_tpu_torch.ops.bls_batch import tower as T
+
+    args = _edge_lanes(dev, n, 70 + n, dead=dead)
+    f, total = K.rlc_miller_shard_kernel(*args)
+    pf, ptotal = B.rlc_miller_shard_plain(*args)
+    assert torch.equal(f, _canon(pf)) and _all_equal(total, ptotal)
+    if dead == "all":
+        assert bool(T.fq12_is_one(f)) and not bool(T.fq2_is_zero(total[0]))
+
+
+@pytest.mark.parametrize("d,equal", [(1, False), (2, False), (2, True),
+                                     (4, False), (4, True)])
+def test_rlc_shard_combine_edge_shapes(dev, d, equal):
+    """K26 over D partials (the shared lane through the same per-lane
+    code as K9's lanes, then the fold with the partials), with equal
+    partials (the tree sum's doubling branch): equal to its plain
+    version."""
+    import random
+
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls import curve
+    from consensus_specs_tpu_torch.ops.bls.fields import Q
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+    from consensus_specs_tpu_torch.ops.bls_batch import tower as T
+
+    r = random.Random(80 + d)
+    pts = [curve.g2.mul(curve.G2_GEN, r.randrange(1, 2**64))
+           for _ in range(d)]
+    fs = [np.stack([F.to_mont(r.randrange(Q)) for _ in range(12)]).reshape(
+        2, 3, 2, 33) for _ in range(d)]
+    if equal:
+        pts[1], fs[1] = pts[0], fs[0]
+    sums = tuple(torch.from_numpy(np.stack([T.fq2_from_oracle(p[c])
+                                            for p in pts])).to(dev)
+                 for c in range(3))
+    fs = torch.from_numpy(np.stack(fs)).to(dev)
+    f, s = K.rlc_shard_combine_kernel(sums, fs)
+    pf, ps = B.rlc_shard_combine_plain(sums, fs)
+    assert torch.equal(f, _canon(pf)) and _all_equal(s, ps)
+
+
+def test_hash_to_g2_kernel_edge_shapes(dev):
+    """K11 (a group of 4 threads per message in the clearing, 8 messages
+    a block) at B = 1, 128 and 129: equal to its plain version at 1 and
+    129, and its first 128 rows at 128."""
+    import random
+
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls_batch import h2c
+
+    rng = random.Random(12)
+    msgs = [bytes(rng.randrange(256) for _ in range(32)) for _ in range(129)]
+    words = torch.from_numpy(h2c.msgs_to_words(msgs).view(np.int32)).to(dev)
+    want = _canon(B.hash_to_g2_affine(words, plain=True))
+    for n in (129, 128):
+        got = B.hash_to_g2_affine(words[:n].contiguous())
+        assert all(torch.equal(g, w[:n]) for g, w in zip(got, want)), n
+    got = B.hash_to_g2_affine(words[:1].contiguous())
+    assert _all_equal(got, B.hash_to_g2_affine(words[:1], plain=True))
+
+
+@pytest.mark.parametrize("device_h2c", [True, False])
+def test_batch_verify_accepts_and_rejects_on_both_routes(dev, device_h2c):
+    """True statements accepted, a tampered signature rejected, with the
+    messages hashed on the card (K11 -> K8 -> K9 -> K10) and on the host
+    (K8 -> K9 -> K10); the two routes' Miller products equal."""
+    import random
+
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+
+    traces = []
+    for forge in (None, 3):
+        tr = {}
+        _build.reset_launches()
+        got = B.batch_verify(_bls_tasks(6, forge=forge), rng=random.Random(3),
+                             device=dev, device_h2c=device_h2c, trace=tr)
+        assert got is (forge is None)
+        assert _build.launches["hash_to_g2"] == int(device_h2c)
+        assert _build.launches["rlc_miller_product"] == 1
+        traces.append(tr)
+    other = {}
+    B.batch_verify(_bls_tasks(6), rng=random.Random(3), device=dev,
+                   device_h2c=not device_h2c, trace=other)
+    assert torch.equal(traces[0]["miller"], other["miller"])
+
+
 def test_g1_shard_fold_kernel(dev):
     from consensus_specs_tpu_torch.ops import bls_batch as B
     from consensus_specs_tpu_torch.ops.bls import curve
