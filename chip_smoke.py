@@ -171,6 +171,7 @@ BLS_COMMITTEE = 64
 BLS_SEED_BASE = 1000
 BLS_RNG_SEED = 0
 BLS_TIMED = 3
+BLS_TIMED_HOST = 1     # the host-hashing route: 98% host, 7.6 s a turn
 BLS_FIELD_N = 1024
 # slice 4: config #3 (bench_bls.py's one 512-member sync-committee
 # statement, seed base 2000) and the MSM probe sizes
@@ -214,6 +215,8 @@ SHARD_DAS_COLUMNS = 2
 SHARD_TIMED = 3
 # the Miller body's and K11's edge shapes, beside the main path's
 RLC_EDGE_B = (1, 2, 31, 33, 129)
+# K12's (live lanes, bucket) and K10's values beside the main path's
+PAIRING_EDGE = ((1, 8), (5, 8), (6, 8), (8, 8), (32, 32))
 # an Fr Montgomery product over 8 32-bit words: 2 x 64 multiply-adds of
 # two 32-bit instructions each; an inversion by r - 2 is 254 squarings
 # and 163 products
@@ -750,7 +753,7 @@ def bls_products(r_bits, n_live: int) -> dict:
     16, G2 (Fq2: a product 3, a square 2) doubling 16 and addition 43, an
     inversion by p - 2 (380 squares and popcount - 1 products), a Miller
     doubling step 41 and addition step 73 per lane, an Fq12 product 54
-    and square 36, the final exponentiation's 5 powers by |x|."""
+    and square 36; K10's chain (`final_exp_products`)."""
     from consensus_specs_tpu_torch.ops.bls.fields import BLS_X, Q
 
     inv = (Q - 2).bit_length() - 1 + bin(Q - 2).count("1") - 1
@@ -766,11 +769,28 @@ def bls_products(r_bits, n_live: int) -> dict:
           + lanes * (x_bits * 41 + x_adds * 73)
           + (x_bits + x_adds) * (lanes - 1) * 54
           + x_bits * 36 + (x_bits + x_adds) * 54)
-    pow_x = x_bits * 36 + x_adds * 54
-    fp6_inv = 3 * 2 + 9 * 3 + inv + 4
-    k10 = (2 * 18 + fp6_inv + 2 * 18) + 5 * pow_x + 9 * 54 + 36 + 3 * 36
     return {"rlc_scalar_mul": k8, "rlc_miller_product": k9,
-            "final_exp_is_one": k10}
+            "final_exp_is_one": final_exp_products()}
+
+
+def final_exp_products() -> int:
+    """Montgomery products of K10's chain (`csrc/bls_rlc.cu`): the Fq12
+    inverse (24 Fq2 products of a0^2, a1^2, a0 / n, a1 / n, 12 of the
+    Fq6 inverse, the norm's 2 squares and 2 products, the windowed
+    inversion of p - 2), 9 dense Fq12 products (54), the Frobenius maps
+    (6 Fq2 products per power), 5 powers by |x| from g on its top bit
+    (a cyclotomic square 18 per lower bit, a product per set one) and
+    the cyclotomic square of m."""
+    from consensus_specs_tpu_torch.ops.bls.fields import BLS_X, Q
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+
+    x_bits = abs(BLS_X).bit_length() - 1
+    x_adds = bin(abs(BLS_X)).count("1") - 1
+    inv = (24 + 12) * 3 + 4 + window_chain_products(
+        K.window_digits(Q - 2, K.H2C_EXP_WINDOW))
+    frob = (2 + 1 + 2) * 6 * 3
+    pow_x = x_bits * 18 + x_adds * 54
+    return inv + 9 * 54 + frob + 5 * pow_x + 18
 
 
 def check_bls_field_kernels(dev, record, int32_ops_per_s):
@@ -983,9 +1003,11 @@ def bls_path(dev, record, int32_ops_per_s):
                  for t in one_sided)
     if oracle is not False:
         raise AssertionError("one-sided infinity: the oracle accepted")
+    wrong_trace = {}
     for h2c in (False, True):
         if B.batch_verify(wrong, rng=random.Random(BLS_RNG_SEED + 1),
-                          device=dev, device_h2c=h2c) is not False:
+                          device=dev, device_h2c=h2c,
+                          trace=None if h2c else wrong_trace) is not False:
             raise AssertionError(f"a batch with a wrong signature was "
                                  f"accepted (device_h2c={h2c})")
         _build.reset_launches()
@@ -1011,8 +1033,8 @@ def bls_path(dev, record, int32_ops_per_s):
     torch.cuda.reset_peak_memory_stats(dev)
     walls = {True: [], False: []}
     preps = {True: [], False: []}
-    for _ in range(BLS_TIMED):
-        for h2c in (True, False):
+    for i in range(BLS_TIMED):
+        for h2c in (True, False)[:1 + (i < BLS_TIMED_HOST)]:
             # host prep alone, then the whole entry point
             t0 = time.perf_counter()
             B._prepare_rlc_inputs(tasks, random.Random(BLS_RNG_SEED), h2c)
@@ -1105,7 +1127,7 @@ def bls_path(dev, record, int32_ops_per_s):
                "operations", montgomery_products=products[name],
                shape=f"B={BLS_TASKS} statements, {BLS_TASKS + 1} pairing "
                "lanes")
-    return counts, h2c_counts, facade_counts
+    return counts, h2c_counts, facade_counts, wrong_trace["miller"]
 
 
 # --- slice 4: device hashing, the precomputed-line check, the G1 MSM ---------
@@ -1386,6 +1408,65 @@ def pairing_check_path(dev, record, int32_ops_per_s):
           f"parsing and aggregation on the host) and a wrong message "
           f"rejected; Verify and AggregateVerify accept and reject")
     return counts, facade_counts
+
+
+def check_pairing_edge_shapes(dev, rejected_f):
+    """K12 and K10 at the shapes and values the paths give their group
+    code beside the main path's (config #3's bucket 8 with 2 live lanes,
+    config #2's f), each against its plain version on the card: K12 at
+    PAIRING_EDGE (live lanes, bucket) from seeded pairs; K10 at f = 1,
+    f = 0, a random Fq12 and the rejected config #2 batch's f (verdict
+    false), their plain version in one batched call.  Returns the max
+    abs errors (K12, K10)."""
+    import random
+
+    import torch
+
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls import curve
+    from consensus_specs_tpu_torch.ops.bls.fields import Q
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+    from consensus_specs_tpu_torch.ops.bls_batch import pairing as pj
+    from consensus_specs_tpu_torch.ops.bls_batch import tower as tw
+
+    t0 = time.perf_counter()
+    err12 = 0
+    for n_live, bucket in PAIRING_EDGE:
+        r = random.Random(SEED + 50 + n_live)
+        pairs = [(curve.g1.mul(curve.G1_GEN, r.randrange(1, 2**64)),
+                  curve.g2.mul(curve.G2_GEN, r.randrange(1, 2**64)))
+                 for _ in range(n_live)]
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in B.pairing_check_inputs(pairs)]
+        if args[0].shape[0] != bucket:
+            raise AssertionError(f"K12: {n_live} live pairs padded to "
+                                 f"{args[0].shape[0]}, not {bucket}")
+        err12 = max(err12, _canon_equal(
+            f"K12 at bucket {bucket}, {n_live} live",
+            K.precomp_miller_product_kernel(*args),
+            B.precomp_miller_product(*args, plain=True)))
+    r = random.Random(SEED + 49)
+    rand = np.stack([F.to_mont(r.randrange(Q)) for _ in range(12)])
+    fs = torch.stack([F.const(tw.FQ12_ONE_L, dev),
+                      torch.zeros((2, 3, 2, 33), dtype=torch.int32,
+                                  device=dev),
+                      torch.from_numpy(rand.reshape(2, 3, 2, 33)).to(dev),
+                      rejected_f])
+    got = [K.final_exp_is_one_kernel(f.contiguous()) for f in fs]
+    want = pj.final_exponentiate(fs)
+    err10 = max(_canon_equal(f"K10 at f[{i}]", fe, w)
+                for i, ((fe, _), w) in enumerate(zip(got, want)))
+    verdicts = [bool(ok.item()) for _, ok in got]
+    if verdicts != [True, False, False, False]:
+        raise AssertionError(f"K10 verdicts at f = 1, 0, random, the "
+                             f"rejected batch: {verdicts}")
+    print(f"pairing edge shapes: K12 at (live lanes, bucket) "
+          f"{list(PAIRING_EDGE)} and K10 at f = 1, 0, a random Fq12 and "
+          f"the rejected config #2 batch's f (verdicts {verdicts}) equal "
+          f"to their plain versions on the card "
+          f"({time.perf_counter() - t0:.3f} s)")
+    return err12, err10
 
 
 def msm_path(dev, record, int32_ops_per_s):
@@ -3530,13 +3611,18 @@ def main() -> int:
     # -- slices 3 and 4: the RLC batch verify, both routes -----------------
     field_counts = check_bls_field_kernels(dev, record, int32_ops_per_s)
     phase("bls field checks")
-    bls_counts, h2c_counts, facade_counts = bls_path(dev, record,
-                                                     int32_ops_per_s)
+    bls_counts, h2c_counts, facade_counts, rejected_f = bls_path(
+        dev, record, int32_ops_per_s)
     phase("bls batch (config #2)")
     # -- slice 4: config #3's pairing check and the facade; the MSM -------
     check_counts, fav_counts = pairing_check_path(dev, record,
                                                   int32_ops_per_s)
     phase("pairing check (config #3)")
+    err12, err10 = check_pairing_edge_shapes(dev, rejected_f)
+    for name, err in (("precomp_miller_product", err12),
+                      ("final_exp_is_one", err10)):
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+    phase("pairing edge shapes")
     msm_counts = msm_path(dev, record, int32_ops_per_s)
     phase("msm")
     # -- slice 5: the scalar field, config #5, PeerDAS, compute_cells -------

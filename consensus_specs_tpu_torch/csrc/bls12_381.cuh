@@ -13,9 +13,10 @@
 // of the plain result.
 //
 // Constants (p, -p^-1 mod 2^32, the conversion factors, the Frobenius
-// gammas, the untwist slot scales and |x|) are not typed in here: the
-// wrapper computes them from the port's Python oracle and fills the
-// `__constant__` block once through `bls_set_constants`.
+// gammas, the untwist slot scales, |x| and the sliding-window digits of
+// p - 2) are not typed in here: the wrapper computes them from the port's
+// Python oracle and fills the `__constant__` block once through
+// `bls_set_constants`.
 //
 // What bounds it: 32-bit integer multiply-add issue (an Fp product is
 // 2 x 144 32x32->64 multiply-adds).
@@ -25,6 +26,8 @@
 
 #define BLS_NW 12       // 32-bit words of an Fp
 #define BLS_NL MONT_NL  // 12-bit limbs of the boundary format
+#define FP_INV_DIGITS 384   // sliding-window digits of p - 2 (381 at most)
+#define FP_WINDOW_TABLE 16  // odd powers a, a^3, ..., a^31 of a window chain
 
 struct FpField {
   static constexpr int NW = BLS_NW;
@@ -42,13 +45,28 @@ struct BlsConstants {
   uint32_t x_abs_hi, x_abs_lo;  // |x|, the BLS12-381 parameter
   Fp2 gamma[6];             // Frobenius scale of w^i (Montgomery form)
   Fp2 sx, sy;               // untwist slot scales (Montgomery form)
+  int8_t e_inv[FP_INV_DIGITS];  // p - 2: sliding-window digits, MSB first,
+  uint32_t e_inv_len;           // each 0 or odd and < 2 FP_WINDOW_TABLE
 };
-static_assert(sizeof(BlsConstants) == 281 * 4, "constant block layout");
+static_assert(sizeof(BlsConstants) == 378 * 4, "constant block layout");
 
 __constant__ BlsConstants BLS;
 
 __device__ __forceinline__ const MontConsts<BLS_NW>& FpField::k() {
   return BLS.f;
+}
+
+// |x|, the BLS12-381 parameter, and the index of its top bit: the Miller
+// loop and the final exponentiation's powers run over the bits below it,
+// MSB first
+__device__ __forceinline__ uint64_t bls_x_abs() {
+  return ((uint64_t)BLS.x_abs_hi << 32) | BLS.x_abs_lo;
+}
+__device__ __forceinline__ int bls_x_top() {
+  const uint64_t x_abs = bls_x_abs();
+  int top = 63;
+  while (!((x_abs >> top) & 1)) --top;
+  return top;
 }
 
 // --- Fp: mont.cuh's core at 12 words ---------------------------------------
@@ -82,6 +100,25 @@ __device__ __forceinline__ void fp_neg(Fp& r, const Fp& a) {
 __device__ __forceinline__ void fp_dbl(Fp& r, const Fp& a) { fp_add(r, a, a); }
 // a^(p-2): Fermat inversion, 0 -> 0
 __device__ __forceinline__ void fp_inv(Fp& r, const Fp& a) { mont_inv(r, a); }
+
+// a^e for e given by its sliding-window digits d (MSB first, each 0 or an
+// odd value < 2 FP_WINDOW_TABLE): a square per digit after the first
+// nonzero one, a product per nonzero digit.  a = 0 gives 0.
+__device__ __noinline__ void fp_pow_window(Fp& out, const Fp& a,
+                                           const int8_t* d, int len) {
+  Fp tab[FP_WINDOW_TABLE], a2, acc;
+  tab[0] = a;
+  fp_sqr(a2, a);
+  for (int k = 1; k < FP_WINDOW_TABLE; ++k) fp_mul(tab[k], tab[k - 1], a2);
+  int k = 0;
+  while (!d[k]) ++k;
+  acc = tab[d[k] >> 1];
+  for (++k; k < len; ++k) {
+    fp_sqr(acc, acc);
+    if (d[k]) fp_mul(acc, acc, tab[d[k] >> 1]);
+  }
+  out = acc;
+}
 // (33,) int32 limbs, value x 2^396 (lazy) -> x 2^384
 __device__ __forceinline__ void load_fp(Fp& r, const int32_t* src) {
   mont_load(r, src);
@@ -172,6 +209,20 @@ __device__ __noinline__ void fp2_inv(Fp2& r, const Fp2& a) {
   fp_inv(d, n);
   fp_mul(t, a.c1, d);
   fp_mul(r.c0, a.c0, d);
+  fp_neg(r.c1, t);
+}
+
+// fp2_inv's formula with the Fp inversion a sliding-window chain over the
+// digits (d, len) of p - 2; 0 -> 0
+__device__ __noinline__ void fp2_inv_window(Fp2& r, const Fp2& a,
+                                            const int8_t* d, int len) {
+  Fp n, t, i;
+  fp_sqr(n, a.c0);
+  fp_sqr(t, a.c1);
+  fp_add(n, n, t);
+  fp_pow_window(i, n, d, len);
+  fp_mul(t, a.c1, i);
+  fp_mul(r.c0, a.c0, i);
   fp_neg(r.c1, t);
 }
 

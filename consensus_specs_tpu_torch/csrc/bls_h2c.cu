@@ -29,7 +29,8 @@
 // about 52,000 dependent Montgomery products per message, with the
 // cofactor's 507 doublings and 247 additions on one thread):
 //   - fixed exponents by sliding windows over a table of 16 odd powers
-//     (digits in the constant block, computed by the wrapper): p - 2 for
+//     (`fp_pow_window` in `bls12_381.cuh`; digits in the constant block,
+//     computed by the wrapper): p - 2 for
 //     inversions; (p - 3) / 4 for square roots, since t^((p+1)/4) =
 //     t * t^((p-3)/4) and t^((p-3)/4) is also +-1 / t^((p+1)/4), which
 //     spares each root candidate its inversion;
@@ -60,7 +61,6 @@ namespace {
 
 #define H2C_EXP_DIGITS 384   // digits of the fixed exponents (<= 381 bits)
 #define H2C_H2_DIGITS 512    // digits of H2 (508 at most)
-#define H2C_EXP_TABLE 16     // odd powers a, a^3, ..., a^31
 #define H2C_H2_TABLE 8       // odd multiples q, 3q, ..., 15q
 
 // the map's constants, from the port's oracle (`kernels.h2c_constant_words`)
@@ -133,40 +133,10 @@ __device__ __noinline__ void hash_to_field_elem(Fp2& u, const uint32_t msg[8],
 
 // --- fixed exponents, square root and sgn0 ----------------------------------
 
-// a^e for e given by its sliding-window digits d (MSB first, each 0 or an
-// odd value < 2 H2C_EXP_TABLE): a square per digit after the first
-// nonzero one, a product per nonzero digit.  a = 0 gives 0.
-__device__ __noinline__ void fp_pow_window(Fp& out, const Fp& a,
-                                           const int8_t* d, int len) {
-  Fp tab[H2C_EXP_TABLE], a2, acc;
-  tab[0] = a;
-  fp_sqr(a2, a);
-  for (int k = 1; k < H2C_EXP_TABLE; ++k) fp_mul(tab[k], tab[k - 1], a2);
-  int k = 0;
-  while (!d[k]) ++k;
-  acc = tab[d[k] >> 1];
-  for (++k; k < len; ++k) {
-    fp_sqr(acc, acc);
-    if (d[k]) fp_mul(acc, acc, tab[d[k] >> 1]);
-  }
-  out = acc;
-}
-
-// Fermat inversion a^(p - 2); 0 -> 0
-__device__ __forceinline__ void h2c_fp_inv(Fp& r, const Fp& a) {
-  fp_pow_window(r, a, H2C.e_inv, H2C.e_inv_len);
-}
-
-// (a0 - a1 u) / (a0^2 + a1^2), fp2_inv's formula; 0 -> 0
-__device__ __noinline__ void h2c_fp2_inv(Fp2& r, const Fp2& a) {
-  Fp n, t, d;
-  fp_sqr(n, a.c0);
-  fp_sqr(t, a.c1);
-  fp_add(n, n, t);
-  h2c_fp_inv(d, n);
-  fp_mul(t, a.c1, d);
-  fp_mul(r.c0, a.c0, d);
-  fp_neg(r.c1, t);
+// (a0 - a1 u) / (a0^2 + a1^2), fp2_inv's formula, the Fp inversion by
+// the digits of p - 2; 0 -> 0
+__device__ __forceinline__ void h2c_fp2_inv(Fp2& r, const Fp2& a) {
+  fp2_inv_window(r, a, H2C.e_inv, H2C.e_inv_len);
 }
 
 // c = t^((p + 1) / 4) = t s with s = t^((p - 3) / 4); c s = t^((p-1)/2)

@@ -19,8 +19,8 @@
 //                          (r_i PK_i, H_i) and (-G1, sum)
 //                          (pairing_jax.py:133 miller_product_batch)
 //   K10 final_exp_is_one   pairing_jax.py:297 final_exponentiate (the
-//                          cube of the standard pairing value) and
-//                          tower.py fq12_is_one
+//                          cube of the standard pairing value), with
+//                          :279 fq12_pow_x_abs, and tower.py fq12_is_one
 //
 // Inputs and outputs are the port's boundary format (bls12_381.cuh):
 // (..., 33) int32 limbs, R = 2^396; outputs are canonical.
@@ -34,14 +34,13 @@
 // lane with its own Miller accumulator, the lanes spread over
 // ceil(B / 5) + 1 blocks (block 0 sums the signature rows and runs the
 // shared lane), then one block multiplies the lanes' values in a tree.
-// K10 is one thread.
+// K10 is one group of FE_G = 18 threads (its section below).
 // Every launcher returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bls12_381.cuh"
-#include "bls_miller.cuh"
 #include "bls_rlc_body.cuh"
 
 namespace {
@@ -173,60 +172,247 @@ rlc_fold_kernel(Fp12* __restrict__ F, int n_raw,
 }
 
 // --- K10 -------------------------------------------------------------------
+//
+// One block of FE_G = 18 threads: 18 is the number of independent Fq2
+// products of a dense Fq12 product (fp12_mul's Karatsuba) and of Fp
+// products of a cyclotomic square (nine Fq2 squares of two each), so each
+// of the chain's products and squares is one round of the group, a
+// product one Fq2 product deep and a square one Fp product deep.  Values
+// live in shared memory as 6 Fq2 in `Fp12` order; every rank calls the
+// same product on operands it picks by rank (a converged warp).
+//   easy part  f^((q^6 - 1)(q^2 + 1)) = frob(conj(f) / f, 2) conj(f) / f:
+//              fp12_inv's Fq6 products over the group; its one Fp
+//              inversion, the only serial stretch, by the sliding window
+//              over p - 2's digits (`fp_pow_window`), about 450 products
+//              in place of mont_pow's 570; 0 -> 0.
+//   hard part  the x-structured chain of pairing_jax.py:297.  Every value
+//              in it lies in the cyclotomic subgroup (for f = 0 every
+//              value is 0), so it squares by Granger-Scott's cyclotomic
+//              squaring (three Fq4 squares); each power by |x| starts at g
+//              on |x|'s top bit: 63 squares and 5 products.
+// What bounds it: the dependent chain, about 315 cyclotomic squares, 32
+// dense products and the inversion (latency).
 
-__device__ __noinline__ void fp12_pow_x_abs(Fp12& r, const Fp12& g) {
-  const uint64_t x_abs = bls_x_abs();
-  Fp12 acc;
-  fp12_one(acc);
-  for (int bit = 63; bit >= 0; --bit) {
-    fp12_sqr(acc, acc);
-    if ((x_abs >> bit) & 1) fp12_mul(acc, acc, g);
+#define FE_G 18   // K10's threads
+
+// out = a b (Fq12, 6 Fq2 each); out may be a or b
+__device__ __forceinline__ void fe_mul(Fp2* out, const Fp2* a, const Fp2* b,
+                                       Fp2* prod, int r) {
+  fp12_mul_job(prod, a, b, r);
+  __syncthreads();
+  if (r < 6) fp12_mul_combine(out, prod, r);
+  __syncthreads();
+}
+
+// out = a^2 for a in the cyclotomic subgroup (or 0), Granger-Scott: with
+// the Fq4 squares (x, y)^2 = (x^2 + xi y^2, (x + y)^2 - x^2 - y^2) of
+// t0 = (a[0], a[4]), t1 = (a[3], a[2]), t2 = (a[1], a[5]) (Fp12 order),
+// out[k] = 3 A_k - 2 a[k] for k < 3 with A = (t0, t1, t2)'s first halves,
+// and out[3, 4, 5] = 3 (xi t2', t0', t1') + 2 a[3, 4, 5] with their
+// second halves.  Round one: rank r takes the Fp product r of the nine
+// Fq2 squares x^2, y^2, (x + y)^2 (c0 = (z0 + z1)(z0 - z1), c1 = 2 z0 z1);
+// round two: rank k < 6 forms out[k].  out may be a.
+__device__ __noinline__ void fe_cyc_sqr(Fp2* out, const Fp2* a, Fp2* sq,
+                                        int r) {
+  {
+    const int j = r >> 1, pair = j / 3, which = j % 3, part = r & 1;
+    const int ix = pair == 0 ? 0 : (pair == 1 ? 3 : 1);
+    const int iy = pair == 0 ? 4 : (pair == 1 ? 2 : 5);
+    Fp2 z;
+    if (which == 0) z = a[ix];
+    else if (which == 1) z = a[iy];
+    else fp2_add(z, a[ix], a[iy]);
+    Fp u, v, o;
+    if (part == 0) {
+      fp_add(u, z.c0, z.c1);
+      fp_sub(v, z.c0, z.c1);
+    } else {
+      u = z.c0;
+      v = z.c1;
+    }
+    fp_mul(o, u, v);
+    if (part) fp_dbl(o, o);
+    if (part) sq[j].c1 = o;
+    else sq[j].c0 = o;
   }
-  r = acc;
+  __syncthreads();
+  if (r < 6) {
+    // sq[3p + 0] = x^2, sq[3p + 1] = y^2, sq[3p + 2] = (x + y)^2
+    const int pair = r == 0 || r == 4 ? 0 : (r == 1 || r == 5 ? 1 : 2);
+    const Fp2* t = sq + 3 * pair;
+    Fp2 h, w;
+    if (r < 3) {                            // x^2 + xi y^2
+      fp2_mul_xi(h, t[1]);
+      fp2_add(h, t[0], h);
+      fp2_sub(w, h, a[r]);
+    } else {                                // (x + y)^2 - x^2 - y^2
+      fp2_sub(h, t[2], t[0]);
+      fp2_sub(h, h, t[1]);
+      if (r == 3) fp2_mul_xi(h, h);
+      fp2_add(w, h, a[r]);
+    }
+    fp2_dbl(w, w);
+    fp2_add(out[r], w, h);
+  }
+  __syncthreads();
 }
 
-// g^x (x negative): conj(g^|x|)
-__device__ __noinline__ void fp12_pow_x(Fp12& r, const Fp12& g) {
-  fp12_pow_x_abs(r, g);
-  fp12_conj(r, r);
+// out = a^(q^k): coefficient of w^r conjugated and scaled by gamma_r, k
+// times (fp12_frobenius), on ranks 0-5; out may be a
+__device__ __forceinline__ void fe_frob(Fp2* out, const Fp2* a, int k,
+                                       int r) {
+  if (r < 6) {
+    const int c = wslot(r);
+    Fp2 x = a[c];
+    for (int n = 0; n < k; ++n) {
+      fp2_conj(x, x);
+      fp2_mul(x, x, BLS.gamma[r]);
+    }
+    out[c] = x;
+  }
+  __syncthreads();
 }
 
-__global__ void __launch_bounds__(1)
+// out = conj(a); out may be a
+__device__ __forceinline__ void fe_conj(Fp2* out, const Fp2* a, int r) {
+  if (r < 3) out[r] = a[r];
+  else if (r < 6) fp2_neg(out[r], a[r]);
+  __syncthreads();
+}
+
+struct FeInv {
+  Fp2 n[3];     // a0^2 - v a1^2, the Fq6 to invert
+  Fp2 q[6];     // products
+  Fp2 t[3];     // fp6_inv's t0, t1, t2
+  Fp2 d;        // 1 / its norm
+  Fp2 i6[3];    // 1 / n
+};
+
+// out = 1 / a (fp12_inv's formulas: 1 / (a0 + a1 w) = (a0 - a1 w) /
+// (a0^2 - v a1^2), the Fq6 inverse by fp6_inv's); 0 -> 0; out may be a
+__device__ __noinline__ void fe_inv(Fp2* out, const Fp2* a, Fp2* prod,
+                                    FeInv& V, int r) {
+  Fp2 x, y;
+  if (r < 12) {                             // a0^2, a1^2: Karatsuba
+    kara_operand(x, a + 3 * (r / 6), r % 6);
+    fp2_mul(prod[r], x, x);
+  }
+  __syncthreads();
+  if (r < 3) {                              // n = a0^2 - v a1^2
+    kara_coeff(x, prod, r);
+    kara_coeff(y, prod + 6, (r + 2) % 3);
+    if (r == 0) fp2_mul_xi(y, y);
+    fp2_sub(V.n[r], x, y);
+  }
+  __syncthreads();
+  if (r < 6) {                              // n0^2, n1 n2, n2^2, n0 n1,
+    const int ia[6] = {0, 1, 2, 0, 1, 0};   // n1^2, n0 n2
+    const int ib[6] = {0, 2, 2, 1, 1, 2};
+    fp2_mul(V.q[r], V.n[ia[r]], V.n[ib[r]]);
+  }
+  __syncthreads();
+  if (r < 3) {                              // t0 = n0^2 - xi n1 n2,
+    if (r == 0) {                           // t1 = xi n2^2 - n0 n1,
+      fp2_mul_xi(x, V.q[1]);                // t2 = n1^2 - n0 n2
+      fp2_sub(V.t[0], V.q[0], x);
+    } else if (r == 1) {
+      fp2_mul_xi(x, V.q[2]);
+      fp2_sub(V.t[1], x, V.q[3]);
+    } else {
+      fp2_sub(V.t[2], V.q[4], V.q[5]);
+    }
+  }
+  __syncthreads();
+  if (r < 3) {                              // n2 t1, n1 t2, n0 t0
+    fp2_mul(V.q[r], V.n[2 - r], V.t[r == 2 ? 0 : r + 1]);
+  }
+  __syncthreads();
+  if (r == 0) {                             // 1 / (n0 t0 + xi (n2 t1 + n1 t2))
+    fp2_add(x, V.q[0], V.q[1]);
+    fp2_mul_xi(x, x);
+    fp2_add(x, x, V.q[2]);
+    fp2_inv_window(V.d, x, BLS.e_inv, BLS.e_inv_len);
+  }
+  __syncthreads();
+  if (r < 3) fp2_mul(V.i6[r], V.t[r], V.d);
+  __syncthreads();
+  if (r < 12) {                             // a0 / n, a1 / n: Karatsuba
+    kara_operand(x, a + 3 * (r / 6), r % 6);
+    kara_operand(y, V.i6, r % 6);
+    fp2_mul(prod[r], x, y);
+  }
+  __syncthreads();
+  if (r < 3) kara_coeff(out[r], prod, r);
+  else if (r < 6) {
+    kara_coeff(x, prod + 6, r - 3);
+    fp2_neg(out[r], x);
+  }
+  __syncthreads();
+}
+
+// out = g^x = conj(g^|x|), g^|x| from g on |x|'s top bit: a cyclotomic
+// square per lower bit, a product by g per set one.  acc is scratch;
+// out may be g.
+__device__ __noinline__ void fe_pow_x(Fp2* out, const Fp2* g, Fp2* acc,
+                                      Fp2* prod, int r) {
+  if (r < 6) acc[r] = g[r];
+  __syncthreads();
+  const uint64_t x_abs = bls_x_abs();
+  for (int bit = bls_x_top() - 1; bit >= 0; --bit) {
+    fe_cyc_sqr(acc, acc, prod, r);
+    if ((x_abs >> bit) & 1) fe_mul(acc, acc, g, prod, r);
+  }
+  fe_conj(out, acc, r);
+}
+
+__global__ void __launch_bounds__(FE_G)
 final_exp_is_one_kernel(const int32_t* __restrict__ f_in,
                         int32_t* __restrict__ fe_out,
                         uint8_t* __restrict__ ok) {
-  Fp12 f, f1, m, t, u, t1, t2, t3;
-  load_fp12(f, f_in);
+  __shared__ Fp12 buf[8];
+  __shared__ Fp2 prod[FE_G];
+  __shared__ FeInv V;
+  Fp2* f = (Fp2*)&buf[0];
+  Fp2* m = (Fp2*)&buf[1];
+  Fp2* t = (Fp2*)&buf[2];
+  Fp2* u = (Fp2*)&buf[3];
+  Fp2* t1 = (Fp2*)&buf[4];
+  Fp2* t2 = (Fp2*)&buf[5];
+  Fp2* t3 = (Fp2*)&buf[6];
+  Fp2* acc = (Fp2*)&buf[7];
+  const int r = threadIdx.x;
+  if (r < 6) load_fp2(f[r], f_in + r * 2 * BLS_NL);
+  __syncthreads();
   // easy part: f^((q^6 - 1)(q^2 + 1))
-  fp12_conj(t, f);
-  fp12_inv(u, f);
-  fp12_mul(f1, t, u);
-  fp12_frobenius(t, f1, 2);
-  fp12_mul(m, t, f1);
+  fe_inv(u, f, prod, V, r);
+  fe_conj(t, f, r);
+  fe_mul(f, t, u, prod, r);                 // f1 = conj(f) / f
+  fe_frob(t, f, 2, r);
+  fe_mul(m, t, f, prod, r);
   // t1 = m^((x - 1)^2): pow_xm1(g) = g^x conj(g), twice
-  fp12_pow_x(t, m);
-  fp12_conj(u, m);
-  fp12_mul(t, t, u);
-  fp12_pow_x(t1, t);
-  fp12_conj(u, t);
-  fp12_mul(t1, t1, u);
+  fe_pow_x(t, m, acc, prod, r);
+  fe_conj(u, m, r);
+  fe_mul(t, t, u, prod, r);
+  fe_pow_x(t1, t, acc, prod, r);
+  fe_conj(u, t, r);
+  fe_mul(t1, t1, u, prod, r);
   // t2 = t1^x frob(t1, 1)
-  fp12_pow_x(t2, t1);
-  fp12_frobenius(u, t1, 1);
-  fp12_mul(t2, t2, u);
+  fe_pow_x(t2, t1, acc, prod, r);
+  fe_frob(u, t1, 1, r);
+  fe_mul(t2, t2, u, prod, r);
   // t3 = (t2^x)^x frob(t2, 2) conj(t2)
-  fp12_pow_x(t3, t2);
-  fp12_pow_x(t3, t3);
-  fp12_frobenius(u, t2, 2);
-  fp12_mul(t3, t3, u);
-  fp12_conj(u, t2);
-  fp12_mul(t3, t3, u);
+  fe_pow_x(t3, t2, acc, prod, r);
+  fe_pow_x(t3, t3, acc, prod, r);
+  fe_frob(u, t2, 2, r);
+  fe_mul(t3, t3, u, prod, r);
+  fe_conj(u, t2, r);
+  fe_mul(t3, t3, u, prod, r);
   // result = t3 m^3
-  fp12_sqr(u, m);
-  fp12_mul(u, u, m);
-  fp12_mul(t3, t3, u);
-  store_fp12(fe_out, t3);
-  *ok = fp12_is_one(t3);
+  fe_cyc_sqr(u, m, prod, r);
+  fe_mul(u, u, m, prod, r);
+  fe_mul(t3, t3, u, prod, r);
+  if (r < 6) store_fp2(fe_out + r * 2 * BLS_NL, t3[r]);
+  if (r == 0) *ok = fp12_is_one(buf[6]);
 }
 
 }  // namespace
@@ -289,7 +475,7 @@ int rlc_miller_product_launch(
 
 int final_exp_is_one_launch(const int32_t* f, int32_t* fe, uint8_t* ok,
                             cudaStream_t stream) {
-  final_exp_is_one_kernel<<<1, 1, 0, stream>>>(f, fe, ok);
+  final_exp_is_one_kernel<<<1, FE_G, 0, stream>>>(f, fe, ok);
   return cudaGetLastError();
 }
 

@@ -1,14 +1,15 @@
-// The RLC batch's Miller product, shared by K9 (`bls_rlc.cu`
+// The per-lane Miller body, shared by K9 (`bls_rlc.cu`
 // rlc_miller_product: the B lanes and the (-G1, sum) lane), K25
-// (`bls_shard.cu` rlc_miller_shard: a shard's lanes alone) and K26
+// (`bls_shard.cu` rlc_miller_shard: a shard's lanes alone), K26
 // (`bls_shard.cu` rlc_shard_combine: the shared lane alone over the
-// shards' partial sums): the G2 tree sum, one Miller loop per lane with
+// shards' partial sums) and K12 (`bls_pairing.cu` precomp_miller_product:
+// host-precomputed lines, no G2 arithmetic): one Miller loop per lane with
 // its own accumulator, and the product of the lanes' values.
 //
 // The identity it rests on: the shared accumulator of
-// pairing_jax.py:133, f <- f^2 * prod_i line_i, ends as prod_i f_i,
-// where f_i <- f_i^2 * line_i is lane i's own Miller value, since
-// squaring distributes over the product.  Every value is canonical
+// pairing_jax.py:133 and :234, f <- f^2 * prod_i line_i, ends as
+// prod_i f_i, where f_i <- f_i^2 * line_i is lane i's own Miller value,
+// since squaring distributes over the product.  Every value is canonical
 // (`mont.cuh`), so conj(prod_i f_i) has the bits of the shared f whatever
 // the order of the product.  A dead lane's f_i is one.
 //
@@ -29,6 +30,10 @@
 //               (`g2_tree_sum`: the same pairs in the same order), then,
 //               where the kernel has the shared lane, runs it through the
 //               same per-lane code as every other lane.
+//   precomp_lanes  K12's lanes: the same groups over the live lanes only,
+//               each step's line read from rows that K12's first launch
+//               evaluated at P, so a doubling step is f^2 (2 Fq2 products
+//               a thread) and the sparse line product (3): 5 deep.
 //   rlc_fold    one block: the lanes' values conjugated (the negative BLS
 //               parameter; conj is a ring map), any extra Fq12 rows
 //               appended (K26: the shards' conjugated partials), and
@@ -38,7 +43,6 @@
 #pragma once
 
 #include "bls12_381.cuh"
-#include "bls_miller.cuh"
 
 #define LANE_G 6             // threads per lane
 #define LANES_PER_BLOCK 5    // lanes per block: 30 threads, one warp
@@ -472,28 +476,98 @@ __device__ __forceinline__ void rlc_lanes(
   }
 }
 
+// --- K12: the lanes over precomputed lines ---------------------------------
+
+// live lanes among the B of `mask`
+__device__ __forceinline__ int count_live(const uint8_t* __restrict__ mask,
+                                          int B) {
+  int n = 0;
+  for (int i = 0; i < B; ++i) n += mask[i] != 0;
+  return n;
+}
+
+// One step of a lane on its precomputed line c = (c0, cx xs, cy ys):
+// f <- f^2 * line on a doubling step (`square`), f <- f * line on an
+// addition.  The line's rows are read while the square's products run.
+// Every thread of the block calls it.
+__device__ __noinline__ void line_pass(LaneState& L, int r, bool live,
+                                       bool square,
+                                       const Fp2* __restrict__ c) {
+  if (live) {
+    if (square) sqr_jobs(L, r);
+    else L.s[r] = L.f[r];
+    if (r == 0) L.l0 = c[0];
+    else if (r == 1) L.lx = c[1];
+    else if (r == 2) L.ly = c[2];
+  }
+  __syncthreads();
+  if (square) {
+    if (live) sqr_combine(L, r);
+    __syncthreads();
+  }
+  if (live) sparse_line_mul(L, r);
+  __syncthreads();
+}
+
+// The live lane j (the j-th set entry of `mask`) in group j % 5 of block
+// j / 5: its raw Miller value over the rows lines[step][j][0..5] (the
+// doubling line's three terms, then the addition's, as
+// `precomp_lines_kernel` leaves them) to F[j].  Blocks past the live
+// lanes return at once.
+__device__ __forceinline__ void precomp_lanes(const Fp2* __restrict__ lines,
+                                              const uint8_t* __restrict__ mask,
+                                              int B, Fp12* __restrict__ F) {
+  __shared__ LaneState st[LANES_PER_BLOCK];
+  const int g = threadIdx.x / LANE_G, r = threadIdx.x % LANE_G;
+  const int n_live = count_live(mask, B);
+  if (blockIdx.x * LANES_PER_BLOCK >= n_live) return;   // block-uniform
+  const int j = blockIdx.x * LANES_PER_BLOCK + g;
+  const bool live = j < n_live;
+  LaneState& L = st[g];
+  if (live) {
+    if (r == 0) fp2_one(L.f[0]);
+    else fp2_zero(L.f[r]);
+  }
+  __syncthreads();
+  const uint64_t x_abs = bls_x_abs();
+  const int top = bls_x_top();
+  for (int bit = top - 1; bit >= 0; --bit) {
+    const Fp2* c = lines + ((int64_t)(top - 1 - bit) * B + j) * 6;
+    line_pass(L, r, live, true, c);
+    if ((x_abs >> bit) & 1) line_pass(L, r, live, false, c + 3);
+  }
+  if (live) ((Fp2*)&F[j])[r] = L.f[r];
+}
+
 // --- the fold --------------------------------------------------------------
 
 // out = a b by the LANE_G threads of a group (rank r), in two halves
 // around a barrier: the 18 Fq2 products (3 per thread) of fp12_mul's
 // Karatsuba into prod, then coefficient r of c0 = t0 + v t1,
-// c1 = (a0 + a1)(b0 + b1) - t0 - t1
-__device__ __noinline__ void fp12_mul_jobs(Fp2* prod, const Fp2* a,
-                                           const Fp2* b, int r) {
+// c1 = (a0 + a1)(b0 + b1) - t0 - t1.  Product k: kara(a0, k) kara(b0, k)
+// for k < 6, kara(a1, k - 6) kara(b1, k - 6) for k < 12, then those of
+// (a0 + a1)(b0 + b1).
+__device__ __noinline__ void fp12_mul_job(Fp2* prod, const Fp2* a,
+                                          const Fp2* b, int k) {
   Fp2 x, y, s[3], u[3];
-  kara_operand(x, a, r);
-  kara_operand(y, b, r);
-  fp2_mul(prod[r], x, y);
-  kara_operand(x, a + 3, r);
-  kara_operand(y, b + 3, r);
-  fp2_mul(prod[6 + r], x, y);
-  for (int k = 0; k < 3; ++k) {
-    fp2_add(s[k], a[k], a[3 + k]);
-    fp2_add(u[k], b[k], b[3 + k]);
+  const int h = k / 6, j = k % 6;
+  if (h < 2) {
+    kara_operand(x, a + 3 * h, j);
+    kara_operand(y, b + 3 * h, j);
+  } else {
+    for (int i = 0; i < 3; ++i) {
+      fp2_add(s[i], a[i], a[3 + i]);
+      fp2_add(u[i], b[i], b[3 + i]);
+    }
+    kara_operand(x, s, j);
+    kara_operand(y, u, j);
   }
-  kara_operand(x, s, r);
-  kara_operand(y, u, r);
-  fp2_mul(prod[12 + r], x, y);
+  fp2_mul(prod[k], x, y);
+}
+
+__device__ __forceinline__ void fp12_mul_jobs(Fp2* prod, const Fp2* a,
+                                              const Fp2* b, int r) {
+  for (int h = 0; h < 3; ++h) fp12_mul_job(prod, a, b, 6 * h + r);
 }
 
 __device__ __noinline__ void fp12_mul_combine(Fp2* out, const Fp2* prod,

@@ -53,28 +53,10 @@ def _mont_words(x: int) -> list[int]:
     return _words(x % Q * R_KERNEL % Q)
 
 
-def constant_words() -> np.ndarray:
-    """The `BlsConstants` block of `bls12_381.cuh`, in its field order, as
-    uint32 words: p, p - 2, the Montgomery one, the boundary conversion
-    factors, -p^-1 mod 2^32, the line slots, |x|, the Frobenius gammas
-    and the untwist scales (both in the kernels' Montgomery form)."""
-    x_abs = abs(BLS_X)
-    assert JX not in (0, JY) and JY != 0
-    words = (_words(Q) + _words(Q - 2) + _words(R_KERNEL % Q)
-             + _words(pow(2, 372, Q)) + _words(pow(2, 756, Q))
-             + _words(pow(2, 768, Q)) + _words(pow(2, 396, Q))
-             + [(-pow(Q, -1, 1 << 32)) % (1 << 32), JX, JY,
-                x_abs >> 32, x_abs & 0xFFFFFFFF])
-    for g in list(_GAMMA) + [SX, SY]:
-        words += _mont_words(g.c0) + _mont_words(g.c1)
-    out = np.array(words, dtype=np.uint32)
-    assert out.size == 281
-    return out
-
-
-# K11's fixed chains (`bls_h2c.cu`): exponents by sliding windows over
-# the odd powers a .. a^31, the cofactor by signed windows over the odd
-# multiples q .. 15q
+# Fixed chains: exponents by sliding windows over the odd powers
+# a .. a^31 (p - 2 in `BlsConstants.e_inv`, and K11's in `bls_h2c.cu`),
+# K11's cofactor by signed windows over the odd multiples q .. 15q
+FP_INV_DIGITS = 384
 H2C_EXP_WINDOW = 5
 H2C_H2_WINDOW = 5
 H2C_EXP_DIGITS = 384
@@ -121,6 +103,29 @@ def _digit_words(d: list[int], size: int) -> list[int]:
     return b.view(np.uint32).tolist()
 
 
+def constant_words() -> np.ndarray:
+    """The `BlsConstants` block of `bls12_381.cuh`, in its field order, as
+    uint32 words: p, p - 2, the Montgomery one, the boundary conversion
+    factors, -p^-1 mod 2^32, the line slots, |x|, the Frobenius gammas
+    and the untwist scales (both in the kernels' Montgomery form), and the
+    sliding-window digits of p - 2 (int8 in words) with their count."""
+    x_abs = abs(BLS_X)
+    assert JX not in (0, JY) and JY != 0
+    words = (_words(Q) + _words(Q - 2) + _words(R_KERNEL % Q)
+             + _words(pow(2, 372, Q)) + _words(pow(2, 756, Q))
+             + _words(pow(2, 768, Q)) + _words(pow(2, 396, Q))
+             + [(-pow(Q, -1, 1 << 32)) % (1 << 32), JX, JY,
+                x_abs >> 32, x_abs & 0xFFFFFFFF])
+    for g in list(_GAMMA) + [SX, SY]:
+        words += _mont_words(g.c0) + _mont_words(g.c1)
+    e_inv = window_digits(Q - 2, H2C_EXP_WINDOW)
+    assert len(e_inv) <= FP_INV_DIGITS
+    words += _digit_words(e_inv, FP_INV_DIGITS) + [len(e_inv)]
+    out = np.array(words, dtype=np.uint32)
+    assert out.size == 378
+    return out
+
+
 def h2c_constant_words() -> np.ndarray:
     """The `H2cConstants` block of `bls_h2c.cu`, in its field order, as
     uint32 words: the xmd block templates, the digits of (p - 3) / 4 and
@@ -164,7 +169,7 @@ _SIGNATURES = {
         "hash_to_g2_launch": [_p, _i32, _p, _p, _p, _p, _p],
     },
     "bls_pairing": {
-        "precomp_miller_product_launch": [_p] * 4 + [_i32, _p, _p, _i32, _p],
+        "precomp_miller_product_launch": [_p] * 4 + [_i32, _p, _p, _p],
     },
     "bls_msm": {
         "msm_pippenger_launch": [_p] * 3 + [_i32] * 3 + [_p] * 3,
@@ -492,9 +497,10 @@ def hash_to_g2_kernel(msg_words):
 
 
 def precomp_miller_product_kernel(xp, yp, lines, mask):
-    """K12: the shared-accumulator Miller product over host-precomputed
-    lines (n_bits, B, 6, 2, 33) at the B affine G1 points (xp, yp), lanes
-    live where `mask`; one conjugated Fq12 (2, 3, 2, 33), canonical."""
+    """K12: the Miller product over host-precomputed lines (n_bits, B, 6,
+    2, 33) at the B affine G1 points (xp, yp), lanes live where `mask`;
+    one conjugated Fq12 (2, 3, 2, 33), canonical.  Three launches (the
+    lines at P, the live lanes, the fold), counted as one call."""
     B = xp.shape[0]
     if B < 1:
         raise ValueError("precomp_miller_product: no lanes")
@@ -510,10 +516,9 @@ def precomp_miller_product_kernel(xp, yp, lines, mask):
     f = torch.empty((2, 3, 2, 33), dtype=torch.int32, device=dev)
     _build.require_cuda("precomp_miller_product", xp, yp, lines, mask,
                         scratch, f)
-    threads = min(256, -(-B // 32) * 32)
     _build.check(lib.precomp_miller_product_launch(
         xp.data_ptr(), yp.data_ptr(), lines.data_ptr(), mask.data_ptr(), B,
-        scratch.data_ptr(), f.data_ptr(), threads, _build.stream_ptr(xp)),
+        scratch.data_ptr(), f.data_ptr(), _build.stream_ptr(xp)),
         "precomp_miller_product")
     _build.launches["precomp_miller_product"] += 1
     return f

@@ -107,9 +107,10 @@ def test_kernel_constant_block_derivation():
     """The words `kernels.constant_words` writes into the kernels'
     `__constant__` block: p, p - 2, -p^-1 mod 2^32, the conversion
     factors and the Montgomery forms of the Frobenius and untwist
-    constants, re-derived here from the JAX package's oracle."""
+    constants, re-derived here from the JAX package's oracle, then the
+    sliding-window digits of p - 2 and their count."""
     w = K.constant_words().astype(object)
-    assert w.shape == (281,)
+    assert w.shape == (378,)
 
     def num(off):
         return sum(int(v) << (32 * i) for i, v in enumerate(w[off:off + 12]))
@@ -124,6 +125,11 @@ def test_kernel_constant_block_derivation():
     for i, g in enumerate(jax_fields._GAMMA):
         assert num(89 + 24 * i) * rinv % Q == g.c0
         assert num(101 + 24 * i) * rinv % Q == g.c1
+    digits = K.constant_words()[281:377].view(np.int8)[:int(w[377])]
+    e = 0
+    for d in digits.tolist():
+        e = 2 * e + d
+    assert e == Q - 2
 
 
 # --- Fq ------------------------------------------------------------------------

@@ -375,6 +375,71 @@ def test_precomp_miller_product_kernel(dev):
         assert B.pairing_check_device(pairs) is (k2 == 97531)
 
 
+@pytest.mark.parametrize("n_live,bucket", [(1, 8), (2, 8), (5, 8), (6, 8),
+                                           (8, 8), (32, 32)])
+def test_precomp_miller_product_edge_shapes(dev, n_live, bucket):
+    """K12 (the lines at P, one group of 6 threads per live lane over
+    blocks of 5 lanes, the fold) at bucket 8 with 1, 2, 5, 6 and 8 live
+    lanes and at bucket 32 with 32: equal to its plain version, one
+    count a call."""
+    import random
+
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls import curve as C
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+
+    r = random.Random(90 + n_live)
+    pairs = [(C.g1.mul(C.G1_GEN, r.randrange(1, 2**64)),
+              C.g2.mul(C.G2_GEN, r.randrange(1, 2**64)))
+             for _ in range(n_live)]
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in B.pairing_check_inputs(pairs)]
+    assert args[0].shape[0] == bucket
+    before = _build.launches["precomp_miller_product"]
+    got = K.precomp_miller_product_kernel(*args)
+    torch.cuda.synchronize()
+    assert _build.launches["precomp_miller_product"] == before + 1
+    assert torch.equal(got, _canon(B.precomp_miller_product(*args,
+                                                            plain=True)))
+
+
+def test_final_exp_is_one_edge_inputs(dev):
+    """K10 (one group of 18 threads: the windowed inversion, cyclotomic
+    squares) at f = 1, f = 0, a random Fq12, an accepted batch's Miller
+    value and a rejected one's: equal to its plain version, the verdicts
+    true, false, false, true, false."""
+    import random
+
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls.fields import Q
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+    from consensus_specs_tpu_torch.ops.bls_batch import pairing as P
+    from consensus_specs_tpu_torch.ops.bls_batch import tower as T
+
+    r = random.Random(17)
+    rand = np.stack([F.to_mont(r.randrange(Q)) for _ in range(12)])
+    fs = [F.const(T.FQ12_ONE_L, dev), torch.zeros((2, 3, 2, 33),
+                                                 dtype=torch.int32,
+                                                 device=dev),
+          torch.from_numpy(rand.reshape(2, 3, 2, 33)).to(dev)]
+    for forge in (None, 1):
+        trace = {}
+        B.batch_verify(_bls_tasks(3, forge), rng=random.Random(3),
+                       device=dev, device_h2c=False, trace=trace)
+        fs.append(trace["miller"])
+    before = _build.launches["final_exp_is_one"]
+    got = [K.final_exp_is_one_kernel(f.contiguous()) for f in fs]
+    torch.cuda.synchronize()
+    assert _build.launches["final_exp_is_one"] == before + len(fs)
+    want = F.fq_canon(P.final_exponentiate(torch.stack(fs)))
+    for (fe, ok), w in zip(got, want):
+        assert torch.equal(fe, w)
+        assert bool(ok.item()) == bool(T.fq12_is_one(w))
+    assert [bool(ok.item()) for _, ok in got] == [True, False, False, True,
+                                                  False]
+
+
 @pytest.mark.parametrize("n,algo", [(8, "pippenger"), (16, "pippenger"),
                                     (8, "double-add"), (40, "double-add")])
 def test_msm_kernels(dev, n, algo):
