@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Time the BLS kernels of config #2's batch on one CUDA card for one
-checkout of the port, so that two commits compare on one card:
+"""Time the BLS kernels of config #2's batch, and K16, on one CUDA card for
+one checkout of the port, so that two commits compare on one card:
 
     python3 compare_kernels.py [--root DIR] [--label NAME]
 
 It imports `consensus_specs_tpu_torch` from DIR (default: this script's
-directory), builds that checkout's BLS libraries with its own `_build`,
+directory), builds that checkout's BLS and Fr libraries with its own `_build`,
 and times, by CUDA events around each call with a sleep kernel ahead
 (`chip_smoke.py`'s `device_ms`, whose helpers and inputs it uses):
 
@@ -13,8 +13,10 @@ and times, by CUDA events around each call with a sleep kernel ahead
   64-key aggregates, B = 128) as `batch_verify` hashes them on the card,
   and their sum, the device-hashing batch's device time;
 - K12 on the first statement's pairing check (bucket 8, 2 live lanes);
-- K25 on shard 0 of the batch over 4 shards (32 lanes) and K26 on the
-  sharded batch's 4 partials.
+- K8 and K25 on shard 0 of the batch over 4 shards (32 lanes) and K26
+  on the sharded batch's 4 partials;
+- K16 on `chip_smoke.py`'s config #5 blob 0 at W = 4096, at its
+  challenge (the commitment by K14 on the card).
 
 It prints, last, one JSON line: the label, the card's name and power
 limit, each kernel's mean device ms, and a SHA-256 of each kernel's
@@ -38,7 +40,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 REPS = 5
 SHARDS = 4
-SOURCES = ("bls_rlc", "bls_h2c", "bls_shard", "bls_pairing")
+SOURCES = ("bls_rlc", "bls_h2c", "bls_shard", "bls_pairing", "bls_msm",
+           "fr_batch")
 
 
 def _helpers():
@@ -74,7 +77,11 @@ def main() -> int:
         print("compare_kernels: no CUDA device", file=sys.stderr)
         return 1
     from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch import convert as CV
+    from consensus_specs_tpu_torch.models.deneb import \
+        polynomial_commitments as P
     from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
     from consensus_specs_tpu_torch.ops.bls import ciphersuite as suite
     from consensus_specs_tpu_torch.ops.bls.curve import g1
     from consensus_specs_tpu_torch.ops.bls.hash_to_curve import (DST_G2,
@@ -124,9 +131,19 @@ def main() -> int:
                               devices=[dev] * SHARDS,
                               trace=sharded) is not True:
         raise AssertionError("the sharded batch rejected config #2")
+    calls["rlc_scalar_mul_shard"] = lambda: K.rlc_scalar_mul_kernel(
+        *t[:4], t[6], t[7])
     calls["rlc_miller_shard"] = lambda: K.rlc_miller_shard_kernel(*k25_args)
     calls["rlc_shard_combine"] = lambda: K.rlc_shard_combine_kernel(
         sharded["partial_sums"], sharded["partial_f"])
+
+    blob = CV.kzg_blobs(cs.KZG_BLOBS)[0]
+    roots = [int(r) for r in P.bit_reversal_permutation(
+        P.compute_roots_of_unity(P.FIELD_ELEMENTS_PER_BLOB))]
+    z = P.compute_challenge(blob, P.blob_to_kzg_commitment(blob))
+    args16 = tuple(torch.from_numpy(a).to(dev) for a in FB.barycentric_inputs(
+        [int(v) for v in P.blob_to_polynomial(blob)], roots, int(z)))
+    calls["fr_barycentric"] = lambda: FB.barycentric(*args16)
 
     ms, digests = {}, {}
     for name, fn in calls.items():

@@ -98,8 +98,17 @@ __device__ __forceinline__ void fp_neg(Fp& r, const Fp& a) {
   fp_sub(r, z, a);
 }
 __device__ __forceinline__ void fp_dbl(Fp& r, const Fp& a) { fp_add(r, a, a); }
+__device__ __forceinline__ void fp_triple(Fp& r, const Fp& a) {
+  Fp t;
+  fp_add(t, a, a);
+  fp_add(r, t, a);
+}
 // a^(p-2): Fermat inversion, 0 -> 0
 __device__ __forceinline__ void fp_inv(Fp& r, const Fp& a) { mont_inv(r, a); }
+// the same inverse by mont.cuh's binary inversion (768 branch-free steps)
+__device__ __forceinline__ void fp_inv_binary(Fp& r, const Fp& a) {
+  mont_inv_binary(r, a);
+}
 
 // a^e for e given by its sliding-window digits d (MSB first, each 0 or an
 // odd value < 2 FP_WINDOW_TABLE): a square per digit after the first
@@ -435,6 +444,9 @@ __device__ __forceinline__ bool f_is_zero(const Fp& a) { return fp_is_zero(a); }
 __device__ __forceinline__ void f_one(Fp& r) { fp_one(r); }
 __device__ __forceinline__ void f_zero(Fp& r) { fp_zero(r); }
 __device__ __forceinline__ void f_inv(Fp& r, const Fp& a) { fp_inv(r, a); }
+__device__ __forceinline__ void f_dbl(Fp& r, const Fp& a) { fp_dbl(r, a); }
+__device__ __forceinline__ void f_neg(Fp& r, const Fp& a) { fp_neg(r, a); }
+__device__ __forceinline__ void f_triple(Fp& r, const Fp& a) { fp_triple(r, a); }
 
 __device__ __forceinline__ void f_add(Fp2& r, const Fp2& a, const Fp2& b) { fp2_add(r, a, b); }
 __device__ __forceinline__ void f_sub(Fp2& r, const Fp2& a, const Fp2& b) { fp2_sub(r, a, b); }
@@ -444,6 +456,9 @@ __device__ __forceinline__ bool f_is_zero(const Fp2& a) { return fp2_is_zero(a);
 __device__ __forceinline__ void f_one(Fp2& r) { fp2_one(r); }
 __device__ __forceinline__ void f_zero(Fp2& r) { fp2_zero(r); }
 __device__ __forceinline__ void f_inv(Fp2& r, const Fp2& a) { fp2_inv(r, a); }
+__device__ __forceinline__ void f_dbl(Fp2& r, const Fp2& a) { fp2_dbl(r, a); }
+__device__ __forceinline__ void f_neg(Fp2& r, const Fp2& a) { fp2_neg(r, a); }
+__device__ __forceinline__ void f_triple(Fp2& r, const Fp2& a) { fp2_triple(r, a); }
 
 // --- Jacobian points (curve_jax.py pt_double / pt_add) --------------------
 

@@ -8,7 +8,8 @@
 //                          of the kernel table; not on the main path)
 //   K8 rlc_scalar_mul      r_i PK_i (G1, to affine with an infinity flag)
 //                          and r_i S_i (G2, Jacobian; pad lanes infinity)
-//                          by 128-bit MSB-first double-and-add
+//                          by 128-bit MSB-first double-and-add on the
+//                          group point passes (its section below)
 //                          (replaces curve_jax.py:147 pt_scalar_mul and
 //                          bls_batch/__init__.py:200 g1_to_affine_dev,
 //                          as `_rlc_pairing_core` runs them)
@@ -28,8 +29,8 @@
 // Design: the work is a chain of dependent Montgomery
 // products per lane, and one batch has only B + 1 = 129 lanes, far less
 // than one wave of the card, so every kernel is latency-bound, not
-// issue-bound.  K8 runs one thread per lane and group (32-thread blocks,
-// one warp per SM).  K9 (`bls_rlc_body.cuh`, shared
+// issue-bound.  K8 runs a group of threads per lane and group, one lane a
+// warp (its section below).  K9 (`bls_rlc_body.cuh`, shared
 // with K25 and K26) is two launches: a group of 6 threads per lane, each
 // lane with its own Miller accumulator, the lanes spread over
 // ceil(B / 5) + 1 blocks (block 0 sums the signature rows and runs the
@@ -96,8 +97,163 @@ bls_field_ops_kernel(int op, int k, const int32_t* __restrict__ a,
 }
 
 // --- K8 --------------------------------------------------------------------
+//
+// One warp per lane: a G2 lane on K8_G2_RANKS = 9 of its threads, each
+// Fq2 product of a round split into its three Karatsuba Fp products
+// (a0 b0, a1 b1, (a0 + a1)(b0 + b1)) on three ranks, so a round is one Fp
+// product deep; a G1 lane on 3 threads, one Fp product a rank.  Both run
+// the group point passes of `bls_point_passes.cuh` (shared with the Miller
+// body) over r's bits, MSB first: a doubling (3 rounds) per bit, an
+// addition of the affine base (6 rounds) per set bit, in place of the
+// serial dbl-2007-bl and the general add-2007-bl.  A lane's rounds meet
+// at warp barriers, so lanes whose bits differ never wait for each other.
+// Warps that share an SM slow each other, so the launcher gives each warp
+// an SM of its own where the card has 2B SMs (2B one-warp blocks: the
+// G2 lanes, then the G1 lanes), and otherwise puts lane i's G2 and G1
+// warps in block i (on an H100: 4.41 against 4.95 ms at B = 32, 6.65
+// against 6.95 at B = 128).  The G1 lane ends in affine form through the
+// binary inversion (`mont_inv_binary`), 0 -> (0, 0) with a_inf set.
 
-__global__ void __launch_bounds__(32)
+#define K8_G2_RANKS 9          // 3 Fq2 products x 3 Karatsuba parts
+#define K8_G1_RANKS 3          // 3 Fp products
+
+template <class F> struct K8Lane {
+  GroupPoint<F> P;
+  Fp part[3][3];               // a round's Karatsuba parts (G2)
+};
+
+// One copy of the Fp product and of each pass's operand picks, called
+// from every round: inlined at each call site they made the chain's code
+// far larger than the instruction cache (on an H100, K8 at B = 128 took
+// 8.5 ms so, 6.7 with these calls).
+__device__ __noinline__ void k8_mul(Fp& out, const Fp& a, const Fp& b) {
+  fp_mul(out, a, b);
+}
+
+template <class F, bool kDbl>
+__device__ __noinline__ F* k8_operands(GroupPoint<F>& P, int k, int j, F& a,
+                                       F& b) {
+  return kDbl ? pt_dbl_operands(P, k, j, a, b)
+              : pt_add_operands(P, k, j, a, b);
+}
+
+// round k of a pass on the lane's ranks: product j = r / kSplit of the
+// round, whole (kSplit = 1) or its Karatsuba part r % 3 (kSplit = 3, F =
+// Fp2), after which ranks 3j and 3j + 1 form its c0 and c1.  Every thread
+// of the warp calls it.
+template <class F, int kSplit, bool kDbl>
+__device__ __forceinline__ void k8_round(K8Lane<F>& S, int k, int r,
+                                         bool live) {
+  const int j = r / kSplit, h = r % kSplit;
+  const int n = kDbl ? pt_dbl_products(k) : pt_add_products(k);
+  F* out = nullptr;
+  if (live && j < n) {
+    F a, b;
+    out = k8_operands<F, kDbl>(S.P, k, j, a, b);
+    if constexpr (kSplit == 1) {
+      k8_mul(*out, a, b);
+    } else {
+      Fp x, y;
+      if (h == 0) {
+        x = a.c0;
+        y = b.c0;
+      } else if (h == 1) {
+        x = a.c1;
+        y = b.c1;
+      } else {
+        fp_add(x, a.c0, a.c1);
+        fp_add(y, b.c0, b.c1);
+      }
+      k8_mul(S.part[j][h], x, y);
+    }
+  }
+  __syncwarp();
+  if constexpr (kSplit == 3) {
+    if (out && h == 0) {                    // c0 = a0 b0 - a1 b1
+      fp_sub(out->c0, S.part[j][0], S.part[j][1]);
+    } else if (out && h == 1) {             // c1 = (a0 + a1)(b0 + b1) - ...
+      Fp u;
+      fp_add(u, S.part[j][0], S.part[j][1]);
+      fp_sub(out->c1, S.part[j][2], u);
+    }
+    __syncwarp();
+  }
+}
+
+// T <- r T by double-and-add over r's nbits bits, MSB first, from T at
+// infinity; every thread of the warp calls it
+template <class F, int kSplit>
+__device__ __forceinline__ void k8_chain(K8Lane<F>& S,
+                                         const int32_t* __restrict__ bits,
+                                         int nbits, int r, bool rank) {
+  for (int i = 0; i < nbits; ++i) {
+#pragma unroll 1
+    for (int k = 0; k < PT_DBL_ROUNDS; ++k)
+      k8_round<F, kSplit, true>(S, k, r, rank);
+    if (rank && r == 0) pt_dbl_finish(S.P);
+    __syncwarp();
+    if (bits[i]) {                          // warp-uniform
+#pragma unroll 1
+      for (int k = 0; k < PT_ADD_ROUNDS; ++k)
+        k8_round<F, kSplit, false>(S, k, r, rank);
+      if (rank && r == 0) pt_add_finish(S.P);
+      __syncwarp();
+    }
+  }
+}
+
+// r S for lane `lane` (G2, Jacobian; a pad lane at infinity), on its warp
+__device__ __forceinline__ void k8_g2_lane(
+    K8Lane<Fp2>& S, int lane, int r, const int32_t* __restrict__ sig_x,
+    const int32_t* __restrict__ sig_y, const int32_t* __restrict__ bits,
+    const uint8_t* __restrict__ mask, int nbits, int32_t* __restrict__ sX,
+    int32_t* __restrict__ sY, int32_t* __restrict__ sZ) {
+  if (r < 4) {                              // xq.c0, xq.c1, yq.c0, yq.c1
+    const int32_t* src = (r < 2 ? sig_x : sig_y) + lane * 2 * BLS_NL;
+    load_fp(((Fp*)&S.P.xq)[r], src + (r & 1) * BLS_NL);
+  } else if (r == 4) {
+    pt_set_infinity(S.P);
+  }
+  __syncwarp();
+  k8_chain<Fp2, 3>(S, bits + (int64_t)lane * nbits, nbits, r,
+                   r < K8_G2_RANKS);
+  if (r == 0 && !mask[lane]) pt_set_infinity(S.P);  // pad lanes leave the sum
+  __syncwarp();
+  if (r < 6) {                              // X, Y, Z: c0, c1 each
+    int32_t* dst = (r < 2 ? sX : (r < 4 ? sY : sZ)) + lane * 2 * BLS_NL;
+    store_fp(dst + (r & 1) * BLS_NL, ((Fp*)&S.P.X)[r]);
+  }
+}
+
+// r PK for lane `lane` (G1), to affine with its infinity flag, on its warp
+__device__ __forceinline__ void k8_g1_lane(
+    K8Lane<Fp>& S, int lane, int r, const int32_t* __restrict__ pk_x,
+    const int32_t* __restrict__ pk_y, const int32_t* __restrict__ bits,
+    int nbits, int32_t* __restrict__ apx, int32_t* __restrict__ apy,
+    uint8_t* __restrict__ a_inf) {
+  if (r == 0) load_fp(S.P.xq, pk_x + lane * BLS_NL);
+  else if (r == 1) load_fp(S.P.yq, pk_y + lane * BLS_NL);
+  else if (r == 2) pt_set_infinity(S.P);
+  __syncwarp();
+  k8_chain<Fp, 1>(S, bits + (int64_t)lane * nbits, nbits, r,
+                  r < K8_G1_RANKS);
+  if (r == 0) {                             // (X / Z^2, Y / Z^3); 0 -> 0
+    Fp zi, zi2, u;
+    fp_inv_binary(zi, S.P.Z);
+    fp_sqr(zi2, zi);
+    fp_mul(S.P.t[0], S.P.X, zi2);
+    fp_mul(u, zi2, zi);
+    fp_mul(S.P.t[1], S.P.Y, u);
+  }
+  __syncwarp();
+  if (r == 0) store_fp(apx + lane * BLS_NL, S.P.t[0]);
+  else if (r == 1) store_fp(apy + lane * BLS_NL, S.P.t[1]);
+  else if (r == 2) a_inf[lane] = fp_is_zero(S.P.Z);
+}
+
+// blockDim 32: blocks [0, B) the G2 lanes, [B, 2B) the G1 lanes;
+// blockDim 64: block i lane i's G2 warp, then its G1 warp
+__global__ void __launch_bounds__(64)
 rlc_scalar_mul_kernel(const int32_t* __restrict__ pk_x,
                       const int32_t* __restrict__ pk_y,
                       const int32_t* __restrict__ sig_x,
@@ -107,39 +263,15 @@ rlc_scalar_mul_kernel(const int32_t* __restrict__ pk_x,
                       int32_t* __restrict__ apx, int32_t* __restrict__ apy,
                       uint8_t* __restrict__ a_inf, int32_t* __restrict__ sX,
                       int32_t* __restrict__ sY, int32_t* __restrict__ sZ) {
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  const int32_t* lane_bits = bits + (int64_t)lane * nbits;
-  if (blockIdx.y == 0) {                    // G1: r PK, then affine
-    Jac<Fp> p, acc;
-    load_fp(p.x, pk_x + lane * BLS_NL);
-    load_fp(p.y, pk_y + lane * BLS_NL);
-    fp_one(p.z);
-    pt_infinity(acc);
-    for (int i = 0; i < nbits; ++i) {
-      pt_double(acc, acc);
-      if (lane_bits[i]) pt_add(acc, acc, p);
-    }
-    Fp x, y;
-    bool inf = pt_to_affine(x, y, acc);
-    store_fp(apx + lane * BLS_NL, x);
-    store_fp(apy + lane * BLS_NL, y);
-    a_inf[lane] = inf;
-  } else {                                  // G2: r S, Jacobian
-    Jac<Fp2> p, acc;
-    load_fp2(p.x, sig_x + lane * 2 * BLS_NL);
-    load_fp2(p.y, sig_y + lane * 2 * BLS_NL);
-    fp2_one(p.z);
-    pt_infinity(acc);
-    for (int i = 0; i < nbits; ++i) {
-      pt_double(acc, acc);
-      if (lane_bits[i]) pt_add(acc, acc, p);
-    }
-    if (!mask[lane]) pt_infinity(acc);      // pad lanes leave the sum
-    store_fp2(sX + lane * 2 * BLS_NL, acc.x);
-    store_fp2(sY + lane * 2 * BLS_NL, acc.y);
-    store_fp2(sZ + lane * 2 * BLS_NL, acc.z);
-  }
+  __shared__ K8Lane<Fp2> s2;
+  __shared__ K8Lane<Fp> s1;
+  const int r = threadIdx.x % 32, b = blockIdx.x;
+  const bool pair = blockDim.x == 64;
+  const bool g2 = pair ? threadIdx.x < 32 : b < B;
+  const int lane = pair || g2 ? b : b - B;
+  if (g2) k8_g2_lane(s2, lane, r, sig_x, sig_y, bits, mask, nbits, sX, sY,
+                     sZ);
+  else k8_g1_lane(s1, lane, r, pk_x, pk_y, bits, nbits, apx, apy, a_inf);
 }
 
 // --- K9 --------------------------------------------------------------------
@@ -443,8 +575,13 @@ int rlc_scalar_mul_launch(const int32_t* pk_x, const int32_t* pk_y,
                           int B, int32_t* apx, int32_t* apy, uint8_t* a_inf,
                           int32_t* sX, int32_t* sY, int32_t* sZ,
                           cudaStream_t stream) {
-  dim3 grid((B + 31) / 32, 2);
-  rlc_scalar_mul_kernel<<<grid, 32, 0, stream>>>(
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const bool pair = 2 * B > sms;
+  rlc_scalar_mul_kernel<<<pair ? B : 2 * B, pair ? 64 : 32, 0, stream>>>(
       pk_x, pk_y, sig_x, sig_y, bits, mask, nbits, B, apx, apy, a_inf, sX,
       sY, sZ);
   return cudaGetLastError();

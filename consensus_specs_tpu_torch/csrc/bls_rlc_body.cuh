@@ -43,6 +43,7 @@
 #pragma once
 
 #include "bls12_381.cuh"
+#include "bls_point_passes.cuh"
 
 #define LANE_G 6             // threads per lane
 #define LANES_PER_BLOCK 5    // lanes per block: 30 threads, one warp
@@ -87,21 +88,17 @@ __device__ __noinline__ void kara_coeff(Fp2& out, const Fp2* m, int c) {
 
 // --- one lane's Miller loop, by its group of LANE_G threads ---------------
 
-// temporaries of a doubling step
-enum { tXX, tYY, tZZ, tYZ, tC, tXYY, tF, tXXZZ, tXXX, tYZZZ, tY3 };
-// temporaries of an addition step
-enum { aZZ, aZZZ, aU2, aS2, aZH, aI, aC0a, aC0b, aJ, aV, aRR, aYJ, aX3, aY3,
-       kLaneTemps };
+// temporaries of the lines (the point's are in GroupPoint)
+enum { lZZ, lXXZZ, lXXX, lYZZZ, lC0a, lC0b, kLineTemps };
 
 struct LaneState {
   Fp2 f[6];          // the lane's Miller value (Fp12 order)
   Fp2 s[6];          // f^2, the factor the line multiplies
   Fp2 prod[12];      // the Karatsuba products of f^2
-  Fp2 X, Y, Z;       // T, Jacobian
-  Fp2 xq, yq;        // Q, affine
+  GroupPoint<Fp2> P; // T (Jacobian), Q (affine), the point's temporaries
   Fp2 xs, ys;        // SX xp, SY yp: the line's x and y terms per unit
   Fp2 l0, lx, ly;    // the line: c0, cx xp SX at w^jx, cy yp SY at w^jy
-  Fp2 t[kLaneTemps];
+  Fp2 t[kLineTemps];
 };
 
 // rank r: products r (t = c0 c1) and 6 + r ((c0 + c1)(c0 + v c1)) of
@@ -154,193 +151,127 @@ __device__ __noinline__ void sparse_line_mul(LaneState& L, int i) {
 // The passes below keep the group's warp converged: in each phase every
 // rank sets up its own operands (a few additions, by rank) and then all
 // ranks call the one Fq2 product, so the products of a phase run side by
-// side rather than one branch after another.
+// side rather than one branch after another.  Ranks 0-2 run the group
+// point passes' products (`bls_point_passes.cuh`), the others the line's.
 
-// f <- f^2 * tangent(T)(P); T <- 2T (dbl_step's line, pt_double_body's
-// point: X3 = F - 2D, Y3 = E (D - X3) - 8C, Z3 = 2 Y Z with E = 3 X^2,
-// F = E^2, D = 4 X Y^2, C = Y^4).  Every thread of the block calls it.
+// f <- f^2 * tangent(T)(P); T <- 2T (dbl_step's line; the point pass's
+// rounds, with Z^2 and the line terms X^2 Z^2, X^3, Y Z^3 beside them).
+// Every thread of the block calls it.
 __device__ __noinline__ void miller_dbl_pass(LaneState& L, int r, bool live) {
+  GroupPoint<Fp2>& P = L.P;
   Fp2* t = L.t;
   Fp2 a, b, u, v;
+  Fp2* out = nullptr;
   if (live) {
     sqr_jobs(L, r);
-    if (r < 4) {                            // X^2, Y^2, Z^2, Y Z
-      a = r == 0 ? L.X : (r == 2 ? L.Z : L.Y);
-      b = r == 0 ? L.X : (r == 1 ? L.Y : L.Z);
-      fp2_mul(t[tXX + r], a, b);
+    if (r < 3) {                            // X^2, Y^2, Y Z
+      out = pt_dbl_operands(P, 0, r, a, b);
+    } else if (r == 3) {                    // Z^2
+      a = P.Z;
+      b = P.Z;
+      out = &t[lZZ];
     }
+    if (out) fp2_mul(*out, a, b);
   }
   __syncthreads();
   if (live) {
     sqr_combine(L, r);
-    switch (r) {                            // C, X Y^2, F, X^2 Z^2, X^3,
-      case 0: a = t[tYY]; b = t[tYY]; break;    // Y Z^3
-      case 1: a = L.X; b = t[tYY]; break;
-      case 2: fp2_triple(a, t[tXX]); b = a; break;
-      case 3: a = t[tXX]; b = t[tZZ]; break;
-      case 4: a = t[tXX]; b = L.X; break;
-      default: a = t[tYZ]; b = t[tZZ]; break;
+    if (r < 3) {                            // C, X Y^2, F
+      out = pt_dbl_operands(P, 1, r, a, b);
+    } else {                                // X^2 Z^2, X^3, Y Z^3
+      a = r == 5 ? P.t[pYZ] : P.t[pXX];
+      b = r == 4 ? P.X : t[lZZ];
+      out = &t[lXXZZ + r - 3];
     }
-    fp2_mul(t[tC + r], a, b);
+    fp2_mul(*out, a, b);
+  }
+  __syncthreads();
+  out = nullptr;
+  if (live) {
+    if (r == 0) {                           // E (D - X3)
+      out = pt_dbl_operands(P, 2, 0, a, b);
+    } else if (r == 1) {                    // cx = -3 X^2 Z^2
+      fp2_triple(a, t[lXXZZ]);
+      fp2_neg(a, a);
+      b = L.xs;
+      out = &L.lx;
+    } else if (r == 2) {                    // cy = 2 Y Z^3
+      fp2_dbl(a, t[lYZZZ]);
+      b = L.ys;
+      out = &L.ly;
+    } else if (r == 3) {                    // c0 = 3 X^3 - 2 Y^2
+      fp2_triple(u, t[lXXX]);
+      fp2_dbl(v, P.t[pYY]);
+      fp2_sub(L.l0, u, v);
+    }
+    if (out) fp2_mul(*out, a, b);
   }
   __syncthreads();
   if (live) {
-    Fp2* out = &t[tY3];
-    switch (r) {
-      case 0:                               // E (D - X3)
-        fp2_dbl(u, t[tXYY]);
-        fp2_dbl(u, u);
-        fp2_dbl(v, u);
-        fp2_sub(v, t[tF], v);
-        fp2_sub(b, u, v);
-        fp2_triple(a, t[tXX]);
-        break;
-      case 1:                               // cx = -3 X^2 Z^2
-        fp2_triple(a, t[tXXZZ]);
-        fp2_neg(a, a);
-        b = L.xs;
-        out = &L.lx;
-        break;
-      case 2:                               // cy = 2 Y Z^3
-        fp2_dbl(a, t[tYZZZ]);
-        b = L.ys;
-        out = &L.ly;
-        break;
-      case 3:                               // c0 = 3 X^3 - 2 Y^2
-        fp2_triple(u, t[tXXX]);
-        fp2_dbl(v, t[tYY]);
-        fp2_sub(L.l0, u, v);
-        break;
-      case 4:                               // X3 = F - 8 X Y^2
-        fp2_dbl(u, t[tXYY]);
-        fp2_dbl(u, u);
-        fp2_dbl(u, u);
-        fp2_sub(L.X, t[tF], u);
-        break;
-      default: fp2_dbl(L.Z, t[tYZ]); break;
-    }
-    if (r < 3) fp2_mul(*out, a, b);
-  }
-  __syncthreads();
-  if (live) {
-    if (r == 0) {                           // Y3 = E (D - X3) - 8C
-      fp2_dbl(u, t[tC]);
-      fp2_dbl(u, u);
-      fp2_dbl(u, u);
-      fp2_sub(L.Y, t[tY3], u);
-    }
+    if (r == 0) pt_dbl_finish(P);
     sparse_line_mul(L, r);
   }
   __syncthreads();
 }
 
-// pt_add(T, Q) for affine Q = (xq, yq, 1) from the pass's products, with
-// pt_add's cases: T at infinity gives Q, H = 0 doubles or gives infinity
-__device__ __noinline__ void add_finish(LaneState& L) {
-  Fp2* t = L.t;
-  if (fp2_is_zero(L.Z)) {
-    L.X = L.xq;
-    L.Y = L.yq;
-    fp2_one(L.Z);
-    return;
-  }
-  Fp2 h, u;
-  fp2_sub(h, t[aU2], L.X);
-  if (fp2_is_zero(h)) {
-    Jac<Fp2> T;
-    T.x = L.X;
-    T.y = L.Y;
-    T.z = L.Z;
-    fp2_sub(u, t[aS2], L.Y);
-    if (fp2_is_zero(u)) pt_double_body(T, T);
-    else pt_infinity(T);
-    L.X = T.x;
-    L.Y = T.y;
-    L.Z = T.z;
-    return;
-  }
-  fp2_dbl(u, t[aYJ]);
-  fp2_sub(L.Y, t[aY3], u);                  // Y3 = rr (V - X3) - 2 S1 J
-  L.X = t[aX3];
-  fp2_dbl(u, t[aZH]);
-  fp2_neg(L.Z, u);                          // Z3 = 2 Z H = -2 Z (X - U2)
-}
-
-// f <- f * chord(T, Q)(P); T <- T + Q (add_step's line; pt_add's point
-// with Z2 = 1: U1 = X, U2 = xq Z^2, S1 = Y, S2 = yq Z^3, H = U2 - U1,
-// rr = 2 (S2 - S1), I = (2H)^2, J = H I, V = U1 I, X3 = rr^2 - J - 2V,
-// Y3 = rr (V - X3) - 2 S1 J, Z3 = 2 Z H).  Every thread calls it.
+// f <- f * chord(T, Q)(P); T <- T + Q (add_step's line; the point pass's
+// rounds, with the line's products c0 = (Y - S2) xq - Z H yq,
+// cx = -(Y - S2) xs, cy = Z H ys beside its J and V).  Every thread
+// calls it.
 __device__ __noinline__ void miller_add_pass(LaneState& L, int r, bool live) {
+  GroupPoint<Fp2>& P = L.P;
   Fp2* t = L.t;
   Fp2 a, b, u;
+  Fp2* out;
   if (live) {
     L.s[r] = L.f[r];
-    if (r == 0) fp2_sqr(t[aZZ], L.Z);
+    if (r == 0) {                           // Z^2
+      out = pt_add_operands(P, 0, 0, a, b);
+      fp2_mul(*out, a, b);
+    }
   }
   __syncthreads();
   if (live && r < 2) {                      // Z^3, U2 = xq Z^2
-    a = r == 0 ? t[aZZ] : L.xq;
-    b = r == 0 ? L.Z : t[aZZ];
-    fp2_mul(t[r == 0 ? aZZZ : aU2], a, b);
+    out = pt_add_operands(P, 1, r, a, b);
+    fp2_mul(*out, a, b);
   }
   __syncthreads();
   if (live && r < 3) {                      // S2, Z (X - U2), I = (2H)^2
-    if (r == 0) {
-      a = L.yq;
-      b = t[aZZZ];
-    } else if (r == 1) {
-      a = L.Z;
-      fp2_sub(b, L.X, t[aU2]);
-    } else {
-      fp2_sub(a, t[aU2], L.X);
-      fp2_dbl(a, a);
-      b = a;
-    }
-    fp2_mul(t[r == 0 ? aS2 : (r == 1 ? aZH : aI)], a, b);
+    out = pt_add_operands(P, 2, r, a, b);
+    fp2_mul(*out, a, b);
   }
   __syncthreads();
   if (live) {
-    Fp2* out;
-    fp2_sub(u, L.Y, t[aS2]);                // Y - yq Z^3
-    switch (r) {
-      case 0: a = u; b = L.xq; out = &t[aC0a]; break;
-      case 1: a = t[aZH]; b = L.yq; out = &t[aC0b]; break;
-      case 2: fp2_neg(a, u); b = L.xs; out = &L.lx; break;
-      case 3: a = t[aZH]; b = L.ys; out = &L.ly; break;
-      case 4: fp2_sub(a, t[aU2], L.X); b = t[aI]; out = &t[aJ]; break;
-      default: a = L.X; b = t[aI]; out = &t[aV]; break;
+    if (r < 2) {                            // J, V
+      out = pt_add_operands(P, 3, r, a, b);
+    } else {
+      fp2_sub(u, P.Y, P.t[pS2]);            // Y - yq Z^3
+      switch (r) {
+        case 2: a = u; b = P.xq; out = &t[lC0a]; break;
+        case 3: a = P.t[pZH]; b = P.yq; out = &t[lC0b]; break;
+        case 4: fp2_neg(a, u); b = L.xs; out = &L.lx; break;
+        default: a = P.t[pZH]; b = L.ys; out = &L.ly; break;
+      }
     }
     fp2_mul(*out, a, b);
   }
   __syncthreads();
   if (live) {
-    if (r == 1) {                           // c0 = I xq - Z H yq
-      fp2_sub(L.l0, t[aC0a], t[aC0b]);
-    } else if (r == 0 || r == 2) {          // rr^2, S1 J
-      if (r == 0) {
-        fp2_sub(a, t[aS2], L.Y);
-        fp2_dbl(a, a);
-        b = a;
-      } else {
-        a = L.Y;
-        b = t[aJ];
-      }
-      fp2_mul(t[r == 0 ? aRR : aYJ], a, b);
+    if (r < 2) {                            // rr^2, S1 J
+      out = pt_add_operands(P, 4, r, a, b);
+      fp2_mul(*out, a, b);
+    } else if (r == 2) {
+      fp2_sub(L.l0, t[lC0a], t[lC0b]);
     }
   }
   __syncthreads();
-  if (live && r == 0) {
-    fp2_dbl(u, t[aV]);
-    fp2_sub(a, t[aRR], t[aJ]);
-    fp2_sub(t[aX3], a, u);
-    fp2_sub(u, t[aV], t[aX3]);
-    fp2_sub(a, t[aS2], L.Y);
-    fp2_dbl(a, a);
-    fp2_mul(t[aY3], a, u);
+  if (live && r == 0) {                     // rr (V - X3)
+    out = pt_add_operands(P, 5, 0, a, b);
+    fp2_mul(*out, a, b);
   }
   __syncthreads();
   if (live) {
-    if (r == 0) add_finish(L);
+    if (r == 0) pt_add_finish(P);
     sparse_line_mul(L, r);
   }
   __syncthreads();
@@ -407,9 +338,9 @@ __device__ __forceinline__ void rlc_lanes(
     g2_tree_sum(sX, sY, sZ, B, m, sums);
     if (threadIdx.x == 0) {
       if (kShared) {
-        bool inf = pt_to_affine(L.xq, L.yq, sums[0]);
-        store_fp2(sum_out, L.xq);
-        store_fp2(sum_out + 2 * BLS_NL, L.yq);
+        bool inf = pt_to_affine(L.P.xq, L.P.yq, sums[0]);
+        store_fp2(sum_out, L.P.xq);
+        store_fp2(sum_out + 2 * BLS_NL, L.P.yq);
         *s_inf_out = inf;
         live_s[0] = !inf;
         row_s[0] = lanes;
@@ -442,10 +373,10 @@ __device__ __forceinline__ void rlc_lanes(
         fp2_mul_fp(L.ys, BLS.sy, p);
         break;
       case 2:
-        if (!shared) load_fp2(L.xq, hx + i * 2 * BLS_NL);
+        if (!shared) load_fp2(L.P.xq, hx + i * 2 * BLS_NL);
         break;
       case 3:
-        if (!shared) load_fp2(L.yq, hy + i * 2 * BLS_NL);
+        if (!shared) load_fp2(L.P.yq, hy + i * 2 * BLS_NL);
         break;
       default: break;
     }
@@ -454,9 +385,9 @@ __device__ __forceinline__ void rlc_lanes(
   }
   __syncthreads();
   if (live) {
-    if (r == 0) L.X = L.xq;
-    else if (r == 1) L.Y = L.yq;
-    else if (r == 2) fp2_one(L.Z);
+    if (r == 0) L.P.X = L.P.xq;
+    else if (r == 1) L.P.Y = L.P.yq;
+    else if (r == 2) fp2_one(L.P.Z);
   }
   bool any = false;
   for (int k = 0; k < LANES_PER_BLOCK; ++k) any = any || live_s[k];

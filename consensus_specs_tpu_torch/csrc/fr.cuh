@@ -51,6 +51,10 @@ __device__ __forceinline__ void fr_pow(Fr& r, const Fr& a, const uint32_t* e) {
 }
 // Fermat inversion a^(r-2): 254 squarings and 163 products; 0 -> 0
 __device__ __forceinline__ void fr_inv(Fr& r, const Fr& a) { mont_inv(r, a); }
+// the same inverse by mont.cuh's binary inversion (512 branch-free steps)
+__device__ __forceinline__ void fr_inv_binary(Fr& r, const Fr& a) {
+  mont_inv_binary(r, a);
+}
 // (33,) int32 limbs, value x 2^396 (lazy) -> x 2^256
 __device__ __forceinline__ void load_fr(Fr& r, const int32_t* src) {
   mont_load(r, src);

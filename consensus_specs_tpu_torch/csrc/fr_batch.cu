@@ -9,11 +9,12 @@
 //                             f(z) = (z^W - h^W) / (W h^W)
 //                                    * sum_i f_i x_i / (z - x_i)
 //                             over a width-W domain h G.  Two launches: a
-//                             thread per lane (f_i x_i, z - x_i, its Fermat
-//                             inverse, the product) and a block sum per
-//                             256 lanes; then one block sums the partials
-//                             and one thread forms z^W and the two scale
-//                             products.
+//                             thread per lane (f_i x_i, z - x_i, its
+//                             binary inverse, the product) and a block sum
+//                             per kTermsBlock = 32 lanes (W = 4096: 128
+//                             blocks, one an SM); then one block sums the
+//                             partials and one thread forms z^W and the
+//                             two scale products.
 //   K17 fr_coset_interpolate  fr_batch.py:315 _coset_interpolate_kernel:
 //                             S_j = sum_b w[b, j] sum_i e[b, i] M[i, j].
 //                             A conversion launch puts the three inputs in
@@ -35,8 +36,10 @@
 // (which follow JAX's order) at canonical values.
 //
 // Design, first version: a thread per independent element; K16's lanes
-// each run a 418-product inversion chain, K17's threads 65 products,
-// K18's one product per stage.  Every launcher returns the first
+// each ran a 418-product Fermat chain (redesigned: `mont_inv_binary`,
+// 512 branch-free steps of word additions and shifts, on 32-thread blocks
+// spread over the SMs in place of 16 blocks of 256), K17's threads 65
+// products, K18's one product per stage.  Every launcher returns the first
 // non-zero cudaGetLastError() of its launches.
 
 #include <cuda_runtime.h>
@@ -51,6 +54,7 @@ enum FrOp { OP_MUL = 0, OP_ADD, OP_SUB, OP_INV, OP_POW, OP_CANON };
 struct FrExp { uint32_t w[FR_NW]; };
 
 constexpr int kBlock = 256;
+constexpr int kTermsBlock = 32;   // K16's terms launch
 
 // --- K15 -------------------------------------------------------------------
 
@@ -92,12 +96,12 @@ __device__ __forceinline__ void block_sum(Fr* s) {
 
 // --- K16 -------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kTermsBlock)
 fr_barycentric_terms_kernel(const int32_t* __restrict__ poly,
                             const int32_t* __restrict__ roots,
                             const int32_t* __restrict__ z, int W,
                             Fr* __restrict__ partial) {
-  __shared__ Fr s[kBlock];
+  __shared__ Fr s[kTermsBlock];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   Fr t;
   fr_zero(t);
@@ -108,7 +112,7 @@ fr_barycentric_terms_kernel(const int32_t* __restrict__ poly,
     load_fr(zz, z);
     fr_mul(f, f, x);          // f_i x_i
     fr_sub(d, zz, x);         // z - x_i
-    fr_inv(d, d);             // 0 -> 0, as JAX's
+    fr_inv_binary(d, d);      // 0 -> 0, as JAX's
     fr_mul(t, f, d);
   }
   s[threadIdx.x] = t;
@@ -242,7 +246,7 @@ int fr_field_ops_launch(int op, const uint32_t* exponent, const int32_t* a,
 
 // scratch: fr_barycentric_scratch_bytes(W) bytes
 int64_t fr_barycentric_scratch_bytes(int W) {
-  return (int64_t)blocks_for(W) * sizeof(Fr);
+  return (int64_t)((W + kTermsBlock - 1) / kTermsBlock) * sizeof(Fr);
 }
 
 int fr_barycentric_launch(const int32_t* poly, const int32_t* roots,
@@ -250,9 +254,9 @@ int fr_barycentric_launch(const int32_t* poly, const int32_t* roots,
                           const int32_t* inv_scale, int W, void* scratch,
                           int32_t* out, cudaStream_t stream) {
   Fr* partial = (Fr*)scratch;
-  const unsigned nb = blocks_for(W);
-  fr_barycentric_terms_kernel<<<nb, kBlock, 0, stream>>>(poly, roots, z, W,
-                                                         partial);
+  const unsigned nb = (W + kTermsBlock - 1) / kTermsBlock;
+  fr_barycentric_terms_kernel<<<nb, kTermsBlock, 0, stream>>>(poly, roots, z,
+                                                              W, partial);
   int err = cudaGetLastError();
   if (err) return err;
   fr_barycentric_finish_kernel<<<1, kBlock, 0, stream>>>(

@@ -191,6 +191,73 @@ __device__ __forceinline__ void mont_inv(Mont<F>& out, const Mont<F>& a) {
   mont_pow(out, a, F::k().mod_minus_2);
 }
 
+// Binary extended-Euclid inversion, a = x R -> x^-1 R, 0 -> 0: equal to
+// mont_inv on every input, in far fewer dependent steps than its chain of
+// products.  (u, v) run from (a, m) to (0, gcd = 1) with x1 a = u and
+// x2 a = v (mod m): where u is odd, (u, v) becomes (|u - v|, min(u, v))
+// and the x's follow; then u and x1 are halved (x1 mod m).  So x2 ends as
+// a^-1 = x^-1 R^-1, and two products by R^2 give x^-1 R.  Every step
+// shortens u and v by a bit between them (m < 2^(32 NW - 1): at most
+// 2 (32 NW - 1) bits), so a fixed 64 NW steps suffice, and the steps are
+// branch-free (masks), so a warp never diverges on the data.
+template <class F>
+__device__ __noinline__ void mont_inv_binary(Mont<F>& out, const Mont<F>& a) {
+  constexpr int NW = F::NW;
+  Mont<F> u = a, v, x1, x2, e, f;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    v.w[j] = F::k().mod[j];
+    x1.w[j] = 0;
+    x2.w[j] = 0;
+  }
+  x1.w[0] = 1;
+  for (int step = 0; step < 64 * NW; ++step) {
+    const uint32_t odd = 0u - (u.w[0] & 1);
+    uint32_t d[NW], borrow = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {          // d = u - v
+      uint64_t s = (uint64_t)u.w[j] - v.w[j] - borrow;
+      d[j] = (uint32_t)s;
+      borrow = (uint32_t)(s >> 63);
+    }
+    const uint32_t lt = 0u - borrow;        // u < v
+    const uint32_t swap = odd & lt;
+    mont_sub(e, x1, x2);
+    mont_sub(f, x2, x1);
+    uint32_t c = 1;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      const uint32_t nd = ~d[j] + c;        // v - u = -d
+      c = c & (nd == 0);
+      const uint32_t diff = (nd & lt) | (d[j] & ~lt);
+      const uint32_t dx = (f.w[j] & lt) | (e.w[j] & ~lt);
+      v.w[j] = (u.w[j] & swap) | (v.w[j] & ~swap);
+      x2.w[j] = (x1.w[j] & swap) | (x2.w[j] & ~swap);
+      u.w[j] = (diff & odd) | (u.w[j] & ~odd);
+      x1.w[j] = (dx & odd) | (x1.w[j] & ~odd);
+    }
+    const uint32_t x_odd = 0u - (x1.w[0] & 1);
+    uint32_t cy = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {          // x1 + m where x1 is odd: < 2m
+      uint64_t s = (uint64_t)x1.w[j] + (F::k().mod[j] & x_odd) + cy;
+      x1.w[j] = (uint32_t)s;
+      cy = (uint32_t)(s >> 32);
+    }
+#pragma unroll
+    for (int j = 0; j < NW - 1; ++j) {      // halve u and x1
+      u.w[j] = (u.w[j] >> 1) | (u.w[j + 1] << 31);
+      x1.w[j] = (x1.w[j] >> 1) | (x1.w[j + 1] << 31);
+    }
+    u.w[NW - 1] >>= 1;
+    x1.w[NW - 1] >>= 1;
+  }
+  Mont<F> k;
+  mont_from_const(k, F::k().c_top);         // R^2
+  mont_mul(out, x2, k);
+  mont_mul(out, out, k);
+}
+
 // boundary: (33,) int32 limbs, value v = x 2^396 (lazy) -> x R
 template <class F>
 __device__ __forceinline__ void mont_load(Mont<F>& out, const int32_t* src) {

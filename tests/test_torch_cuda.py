@@ -1067,6 +1067,69 @@ def test_rlc_miller_product_edge_shapes(dev, n, sig_inf):
     assert bool(s[2].item()) == sig_inf
 
 
+def test_rlc_scalar_mul_edge_lanes(dev):
+    """K8 (a group of threads per lane on the group point passes) on one
+    batch of 37 lanes: the scalars 0, 1, 2, 3 and 2^128 - 1, then 3 and 5
+    on the G1 point (0, 2) of order 3 (the addition meets T = -Q and
+    T = Q), seeded scalars on the rest, pad lanes in the middle and at
+    the end: every output equal to its plain version."""
+    import random
+
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls import curve
+    from consensus_specs_tpu_torch.ops.bls_batch import curve as BC
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+
+    r, n = random.Random(11), 37
+    scalars = [0, 1, 2, 3, 2**128 - 1, 3, 5]
+    scalars += [r.getrandbits(128) for _ in range(n - len(scalars))]
+    pk_x, pk_y = BC.g1_affine_to_limbs(
+        [curve.g1.mul(curve.G1_GEN, r.randrange(1, 2**64)) for _ in range(n)])
+    pk_x[5:7], pk_y[5:7] = F.to_mont(0), F.to_mont(2)
+    sig_x, sig_y = BC.g2_affine_to_limbs(
+        [curve.g2.mul(curve.G2_GEN, r.randrange(1, 2**64)) for _ in range(n)])
+    mask = np.ones(n, bool)
+    mask[[n // 2, n - 1]] = False
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        pk_x, pk_y, sig_x, sig_y, BC.scalars_to_bits(scalars, 128), mask))
+    before = _build.launches["rlc_scalar_mul"]
+    apx, apy, a_inf, r_sig = K.rlc_scalar_mul_kernel(*args)
+    assert _build.launches["rlc_scalar_mul"] == before + 1
+    want = B.rlc_scalar_mul_plain(*args)
+    assert _all_equal((apx, apy, a_inf), want[:3])
+    assert _all_equal(r_sig, want[3])
+    assert a_inf[:7].tolist() == [True] + [False] * 4 + [True, False]
+
+
+@pytest.mark.parametrize("case", ["z_on_domain", "zero_polynomial",
+                                  "coset", "z_on_coset"])
+def test_fr_barycentric_edges(dev, case):
+    """K16 (binary inversions of z - x_i) at its edges: z on the W = 4096
+    domain and the zero polynomial give 0; the coset width of
+    `evaluate_cells_at` (W = 64, shift h_5) at a random z and at z on the
+    coset (0): equal to its plain version."""
+    import random
+
+    from consensus_specs_tpu_torch.das import ciphersuite as DC
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+
+    R, rng = FB.R_MODULUS, random.Random(case)
+    if case.startswith("z") and "domain" in case or case == "zero_polynomial":
+        g = pow(7, (R - 1) // 4096, R)
+        domain, shift = [pow(g, i, R) for i in range(4096)], 1
+    else:
+        domain, shift = list(DC.coset_points(5)), DC.coset_shift(5)
+    poly = [0 if case == "zero_polynomial" else rng.randrange(R)
+            for _ in domain]
+    z = domain[9] if case.startswith("z_on") else rng.randrange(R)
+    args = tuple(torch.from_numpy(a).to(dev) for a in FB.barycentric_inputs(
+        poly, domain, z, shift))
+    got = FB.barycentric(*args)
+    assert torch.equal(got, FB.FR.canon(FB.barycentric(*args, plain=True)))
+    assert (FB.from_limbs(got)[0] == 0) == (case != "coset")
+
+
 @pytest.mark.parametrize("n,dead", [(1, False), (32, True), (8, "all")])
 def test_rlc_miller_shard_edge_shapes(dev, n, dead):
     """K25 on one lane, on a shard of 32 lanes with dead lanes of each
