@@ -22,10 +22,16 @@ and PyTorch built for CUDA.  The script:
 5. runs the incremental epoch step of `bench.py`'s epoch worker at 2**20
    validators with a 1% dirty set through `IncrementalEpochStep` (masked
    sweep, dirty balance chunks, dirty record roots, dirty-path re-hash of
-   the persisted balances and registry forests), requires both roots to
-   equal the full rebuild's and every output and forest layer to equal
-   the plain incremental step's, requires the launch count of every
-   kernel of that step to be > 0, and times it and its stages;
+   the persisted balances and registry forests, both in one K4 launch),
+   requires both roots to equal the full rebuild's and every output and
+   forest layer to equal the plain incremental step's, requires the
+   launch count of every kernel of that step to be > 0 and prints them,
+   and times it and its stages; K1 is also held on the edge registry
+   (`convert.edge_registry`: effective balances 0, 1, incr - 1 and
+   2**64 - 1, delays 0, 1 and 2**64 - 1, one active validator, slashings
+   that make the adjustment the whole active balance), K4 on both forests
+   in one launch, duplicates, unsorted indices, an all-dirty forest,
+   depths 0 and 1, and two forests against two launches;
 6. emits 1024 SSZ proofs from the balances forest and verifies each
    against the list root;
 7. BLS, slices 3 and 4: holds K7 (`bls_field_ops`) canonically equal to
@@ -160,9 +166,10 @@ INCR_SCALARS = (100_000, 2, 32_000_000_000)   # bench.py worker_epoch's
 N_PROOFS = 1024
 # the device kernels of each counted wrapper, by the profiler's names
 PROFILED_KERNELS = {
-    "epoch_sweep": ("totals_kernel", "deltas_kernel", "apply_kernel"),
+    "epoch_sweep": ("sweep_totals_kernel", "sweep_shares_kernel",
+                    "sweep_apply_kernel"),
     "sha256_64B": ("sha256_64B_kernel", "sha256_u64_leaves_kernel"),
-    "update_level": ("update_level_kernel", "leaf_scatter_kernel"),
+    "update_level": ("forest_update_kernel",),
     "balance_chunks": ("balance_chunks_kernel",),
     "records_root_gather": ("records_root_kernel",),
 }
@@ -384,6 +391,10 @@ def read_launches(label: str) -> dict:
     return counts
 
 
+# device operations per call of the last `profile_device_ms`, by name
+PROFILE_COUNTS = {}
+
+
 def profile_device_ms(fn, reps: int):
     """Device time per call of every kernel, memcpy and memset that `fn`
     runs, from torch.profiler (CUPTI): {name: ms per call}."""
@@ -398,11 +409,13 @@ def profile_device_ms(fn, reps: int):
             fn()
         torch.cuda.synchronize()
     per = {}
+    PROFILE_COUNTS.clear()
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             name = e.name.replace("(anonymous namespace)::", "")
             name = name.split("(")[0][:80] if name[:1] != "(" else name[:80]
             per[name] = per.get(name, 0.0) + e.time_range.elapsed_us()
+            PROFILE_COUNTS[name] = PROFILE_COUNTS.get(name, 0) + 1 / reps
     return {k: v / reps / 1e3 for k, v in
             sorted(per.items(), key=lambda kv: -kv[1])}
 
@@ -498,7 +511,10 @@ def check_incremental_kernels(inp, new_bal, new_eff, record_roots, kernels,
                               record, int32_ops_per_s):
     """K4, K5, K6 and K3's gather mode against their plain versions at the
     incremental path's shapes (rung 16384 at depths 18 and 20), with the
-    edge batches; each timed beside its plain version and its bound."""
+    edge batches; each timed beside its plain version and its bound.  K4
+    also on both forests in one launch, on duplicates, unsorted indices,
+    an all-dirty forest, depths 0 and 1, and two forests against two
+    launches."""
     import torch
 
     from consensus_specs_tpu_torch import convert as C
@@ -512,9 +528,16 @@ def check_incremental_kernels(inp, new_bal, new_eff, record_roots, kernels,
         return C.from_numpy_u32(rng.randint(0, 2**32, (m, 8), dtype=np.uint64)
                                 .astype(np.uint32), dev)
 
-    # -- K4 (and K2 writing into the forest's levels) ----------------------
+    # -- K4: each forest's whole dirty-path update, and both in one launch -
+    def equal_dups(words, idx):
+        """Duplicate indices carry equal words (the update's contract)."""
+        first = {}
+        for k, v in enumerate(idx.tolist()):
+            words[k] = words[first.setdefault(v, k)]
+        return words
+
     db, dr = inp.depths            # 18 and 20 at 2**20 validators
-    forests, err4 = {}, 0
+    forests, plains, err4 = {}, {}, 0
     bal_chunks = I.gather_balance_chunks(new_bal, torch.arange(n // 4,
                                                                device=dev))
     for d, leaves_d, idx in ((db, bal_chunks, inp.chunk_idx),
@@ -527,40 +550,96 @@ def check_incremental_kernels(inp, new_bal, new_eff, record_roots, kernels,
         I.update_dirty(want, idx, words, d, plain=True)
         err4 = max(err4, require_equal(
             f"update_dirty d={d} rung={idx.shape[0]}", list(got), list(want)))
-        forests[d] = got
+        forests[d], plains[d] = got, want
+    # both forests in one launch, on new words: the plain updates' layers
+    both = [(forests[db], inp.chunk_idx, rand_words(inp.chunk_idx.shape[0]),
+             db), (forests[dr], inp.validator_idx,
+                   rand_words(inp.validator_idx.shape[0]), dr)]
+    I.update_forests(both)
+    for lay, idx, words, d in both:
+        I.update_dirty(plains[d], idx, words, d, plain=True)
+    err4 = max(err4, require_equal(
+        "update_forests (both forests)", list(forests[db]) + list(forests[dr]),
+        list(plains[db]) + list(plains[dr])))
     edge_sets = {"sibling pairs": [0, 1, 2, 3, 6, 7, n // 2, n // 2 + 1,
                                    n - 2, n - 1],
-                 "all sentinels": []}
+                 "all sentinels": [],
+                 "duplicates": [5, 5, 5, 9, n - 1, n - 1],
+                 "unsorted": [n - 1, 3, n // 2, 0, 77, 3]}
     for label, dirty in edge_sets.items():
         idx = I.pad_dirty_idx(torch.tensor(dirty, dtype=torch.int64),
                               n).to(dev)
-        words = rand_words(idx.shape[0])
+        words = equal_dups(rand_words(idx.shape[0]), idx)
         want = [lay.clone() for lay in forests[dr]]
         I.update_dirty(forests[dr], idx, words, dr)
         I.update_dirty(want, idx, words, dr, plain=True)
         err4 = max(err4, require_equal(f"update_dirty ({label})",
                                        list(forests[dr]), want))
-    lay, vidx = forests[dr], inp.validator_idx
-    parents = int(torch.unique(vidx[vidx < n] >> 1).numel())
-    k4_bound, k4_by = bound(parents, vidx.numel() * 8 + parents * 96,
-                            int32_ops_per_s)
-    leaf_words = rand_words(vidx.shape[0])
+    # small forests: every leaf dirty at depth 10 (all levels dense),
+    # depths 0 and 1; then a two-forest launch against two one-forest ones
+    small = {}
+    for label, d, dirty in (("all dirty d=10", 10, list(range(1024))),
+                            ("d=0", 0, [0]), ("d=1", 1, [1, 1]),
+                            ("d=1 both leaves", 1, [0, 1]),
+                            ("d=12 rung 1024", 12, list(range(7, 4096, 13)))):
+        idx = I.pad_dirty_idx(torch.tensor(dirty, dtype=torch.int64),
+                              1 << d).to(dev)
+        words = equal_dups(rand_words(idx.shape[0]), idx)
+        got = I.build_layers(rand_words(1 << d), d)
+        want = [lay.clone() for lay in got]
+        small[label] = ([lay.clone() for lay in got], idx, words, d)
+        I.update_dirty(got, idx, words, d)
+        I.update_dirty(want, idx, words, d, plain=True)
+        err4 = max(err4, require_equal(f"update_dirty ({label})", list(got),
+                                       want))
+    pair = [small["all dirty d=10"], small["d=12 rung 1024"]]
+    singles = [([lay.clone() for lay in lay_], idx, w, d)
+               for lay_, idx, w, d in pair]
+    I.update_forests(pair)
+    for st in singles:
+        I.update_dirty(*st)
+    err4 = max(err4, require_equal(
+        "update_forests (two forests against two launches)",
+        [t for st in pair for t in st[0]],
+        [t for st in singles for t in st[0]]))
+
+    cidx, vidx = inp.chunk_idx, inp.validator_idx
+    msgs = {db: forest_messages(cidx, 1 << db),
+            dr: forest_messages(vidx, 1 << dr)}
+    live = {db: inp.live_chunks, dr: len(inp.dirty)}
+
+    def k4_bytes(d, idx):
+        """Each message's 64 bytes read and 32 written, the indices and
+        leaf words read, the live leaves written."""
+        return msgs[d] * 96 + idx.numel() * 40 + live[d] * 32
+
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_hz = int32_ops_per_s / (n_sm * INT32_LANES_PER_SM)
+    plan = I.forest_plan([db, dr], [cidx.numel(), vidx.numel()],
+                         I._co_resident(dev.index or 0))
+    fb, fr = forests[db], forests[dr]
+    bw, rw = both[0][2], both[1][2]
+    pb, pr = plains[db], plains[dr]
     record("update_level", "consensus_specs_tpu_torch/csrc/incremental.cu",
            "consensus_specs_tpu/parallel/incremental.py:122", err4,
-           device_ms(lambda: I.update_level(lay[0], lay[1], vidx, 1), 50),
-           cuda_ms(lambda: I.update_level(lay[0], lay[1], vidx, 1,
-                                          plain=True), 3),
-           k4_bound, k4_by, shape="the bottom sparse level of the registry "
-           f"forest: rung {vidx.numel()}, {parents} parents of "
-           f"{lay[1].shape[0]}",
-           leaf_scatter_ms=device_ms(
-               lambda: I.scatter_leaves(lay[0], vidx, leaf_words), 50),
-           leaf_scatter_plain_ms=cuda_ms(
-               lambda: I.scatter_leaves(lay[0], vidx, leaf_words,
-                                        plain=True), 3),
-           leaf_scatter_bound_ms=bound(
-               0, vidx.numel() * 8 + len(inp.dirty) * 64,
-               int32_ops_per_s)[0])
+           device_ms(lambda: I.update_forests(both), 50),
+           # one timed call: the plain update of both forests is 2.5 s
+           cuda_ms(lambda: (I.update_dirty(pb, cidx, bw, db, plain=True),
+                            I.update_dirty(pr, vidx, rw, dr, plain=True)), 1),
+           *bound(msgs[db] + msgs[dr], k4_bytes(db, cidx) + k4_bytes(dr, vidx),
+                  int32_ops_per_s),
+           shape=f"both forests of the incremental step in one launch: "
+           f"depths {db} and {dr}, rungs {cidx.numel()} and {vidx.numel()}, "
+           f"{msgs[db]} and {msgs[dr]} messages; plan {tuple(plan)}",
+           # one message a level, one instruction a cycle: the levels'
+           # dependent chain
+           chain_floor_ms=max(db, dr) * OPS_PER_MESSAGE / clock_hz * 1e3,
+           balances_ms=device_ms(lambda: I.update_dirty(fb, cidx, bw, db), 50),
+           registry_ms=device_ms(lambda: I.update_dirty(fr, vidx, rw, dr), 50),
+           balances_bound_ms=bound(msgs[db], k4_bytes(db, cidx),
+                                   int32_ops_per_s)[0],
+           registry_bound_ms=bound(msgs[dr], k4_bytes(dr, vidx),
+                                   int32_ops_per_s)[0])
 
     # -- K5: dirty chunks at rung 16384, chunks past N, a ragged list -----
     cidx = inp.chunk_idx
@@ -666,8 +745,11 @@ def incremental_path(inp, params):
     out = step()
     torch.cuda.synchronize()
     counts = read_launches("incremental step")
-    for name in ("epoch_sweep", "sha256_64B", "update_level",
-                 "balance_chunks", "records_root_gather"):
+    print(f"incremental step: {sum(counts.values())} counted launches "
+          f"({', '.join(f'{k} {v}' for k, v in counts.items())})")
+    # K2 is not on the step: K4 re-hashes the dense tail too
+    for name in ("epoch_sweep", "update_level", "balance_chunks",
+                 "records_root_gather"):
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"the incremental step never launched "
                                  f"{name}")
@@ -721,16 +803,19 @@ def incremental_path(inp, params):
         "records_gather_K3": cuda_ms(
             lambda: M.validator_records_root(*inp.record_args(eff),
                                              index=inp.validator_idx), 20),
-        "balances_update_K4_K2": cuda_ms(
+        "balances_update_K4": cuda_ms(
             lambda: step.balances_forest.update(inp.chunk_idx, bal_leaves),
             20),
-        "registry_update_K4_K2": cuda_ms(
+        "registry_update_K4": cuda_ms(
             lambda: step.registry_forest.update(inp.validator_idx, rec), 20),
+        "both_updates_K4": cuda_ms(
+            lambda: I.update_many([
+                (step.balances_forest, inp.chunk_idx, bal_leaves),
+                (step.registry_forest, inp.validator_idx, rec)]), 20),
     }
     t0 = time.perf_counter()
     for _ in range(20):
-        step.balances_forest.root_bytes()
-        step.registry_forest.root_bytes()
+        I.roots_bytes((step.balances_forest, step.registry_forest))
     parts["roots_host_tail_host_ms"] = (time.perf_counter() - t0) * 1e3 / 20
     print(f"incremental step: n={n} dirty={len(inp.dirty)} "
           f"median_ms={statistics.median(walls):.4f} "
@@ -747,8 +832,11 @@ def incremental_path(inp, params):
                   {k: round(v, 6) for k, v in per.items()}))
         print(f"incremental step device busy ms={busy:.6f} "
               f"(share of the median step: "
-              f"{busy / statistics.median(walls):.4f}); K2 per step ms="
-              f"{per.get('sha256_64B_kernel', 0.0):.6f}")
+              f"{busy / statistics.median(walls):.4f}); K4 per step ms="
+              f"{per.get('forest_update_kernel', 0.0):.6f}; device "
+              f"operations per step: {round(sum(PROFILE_COUNTS.values()))} "
+              + json.dumps({k: round(v, 3)
+                            for k, v in PROFILE_COUNTS.items()}))
 
     # -- proofs from the balances forest ----------------------------------
     indices = inp.proof_idx.tolist()
@@ -3368,7 +3456,8 @@ def sharded_forest_path(dev, balances, n):
     proofs = forest.emit_proofs(idx)
     torch.cuda.synchronize()
     counts = read_launches("sharded forest")
-    for name in ("update_level", "sha256_64B", "proof_paths"):
+    # the update's dense tail is K4's: K2 builds the shards only
+    for name in ("update_level", "proof_paths"):
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"the sharded forest never launched {name}")
     single.update(chunks, words)
@@ -3778,12 +3867,28 @@ def main() -> int:
         err = max(err, require_equal(
             f"epoch_sweep{scal}", E.epoch_sweep_kernel(odd_reg, s2, params),
             E.epoch_sweep_plain(odd_reg, s2, params)))
+    # the edges of the exact divisions and the saturations: effective
+    # balances 0, 1, incr - 1, 2**64 - 1, delays 0, 1, 2**64 - 1, one
+    # active validator, slashings that make adj the whole active balance
+    for single in (False, True):
+        edge = C.registry_to_torch(C.edge_registry(n, single_active=single),
+                                   dev)
+        for scal in (SCALARS, (100, 2, 2**63), (100, 9, 2**64 - 1),
+                     (0, 0, 0)):
+            s2 = EpochScalars(*scal)
+            err = max(err, require_equal(
+                f"epoch_sweep(edge registry, single_active={single}, {scal})",
+                E.epoch_sweep_kernel(edge, s2, params),
+                E.epoch_sweep_plain(edge, s2, params)))
+        del edge
     k1_bytes = n * (5 * 8 + 8 + 4 + 4 * 1 + 2 * 8)
     record("epoch_sweep", "consensus_specs_tpu_torch/csrc/epoch_sweep.cu",
            "consensus_specs_tpu/parallel/epoch.py:140", err,
            device_ms(lambda: E.epoch_sweep_kernel(reg, sc, params), 50),
            cuda_ms(lambda: E.epoch_sweep_plain(reg, sc, params), 5),
-           k1_bytes / HBM_BYTES_PER_S * 1e3, "bytes")
+           k1_bytes / HBM_BYTES_PER_S * 1e3, "bytes",
+           # its three passes' traffic: 36 + 14 + 76 bytes a validator
+           moved_bytes_ms=n * 126 / HBM_BYTES_PER_S * 1e3)
     new_bal, new_eff = k1
 
     # -- K3: the record roots at N = 2**20 ---------------------------------

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Time the BLS kernels of config #2's batch, and K16, on one CUDA card for
-one checkout of the port, so that two commits compare on one card:
+"""Time the BLS kernels of config #2's batch, K16, and the epoch step's
+kernels on one CUDA card for one checkout of the port, so that two commits
+compare on one card:
 
-    python3 compare_kernels.py [--root DIR] [--label NAME]
+    python3 compare_kernels.py [--root DIR] [--label NAME] [--group G]
 
 It imports `consensus_specs_tpu_torch` from DIR (default: this script's
-directory), builds that checkout's BLS and Fr libraries with its own `_build`,
-and times, by CUDA events around each call with a sleep kernel ahead
-(`chip_smoke.py`'s `device_ms`, whose helpers and inputs it uses):
+directory), builds that checkout's libraries of the group (`bls`, `epoch`
+or `all`, the default) with its own `_build`, and times, by CUDA events
+around each call with a sleep kernel ahead (`chip_smoke.py`'s `device_ms`,
+whose helpers and inputs it uses), in the `bls` group:
 
 - K11, K8, K9 and K10 on `bench_bls.py` config #2 (128 statements of
   64-key aggregates, B = 128) as `batch_verify` hashes them on the card,
@@ -16,7 +18,20 @@ and times, by CUDA events around each call with a sleep kernel ahead
 - K8 and K25 on shard 0 of the batch over 4 shards (32 lanes) and K26
   on the sharded batch's 4 partials;
 - K16 on `chip_smoke.py`'s config #5 blob 0 at W = 4096, at its
-  challenge (the commitment by K14 on the card).
+  challenge (the commitment by K14 on the card);
+
+and in the `epoch` group, on `chip_smoke.py`'s 2**20-validator registry
+and `bench.py`'s 1% dirty set, through functions both checkouts have:
+
+- K1 (`epoch_sweep_kernel`);
+- each persisted forest's dirty-path update (`MerkleForest.update`: the
+  balances forest, depth 18, and the registry forest, depth 20, at rung
+  16384) and both one after the other;
+- K24's three phases on shard 0 of the registry over 4 shards, the sums
+  all-reduced and the shares reduce-scattered as the sharded sweep does;
+- the incremental step (`IncrementalEpochStep`): its device busy time
+  (torch.profiler, the sum over its device operations) and its wall
+  (host clock, median of 9).
 
 It prints, last, one JSON line: the label, the card's name and power
 limit, each kernel's mean device ms, and a SHA-256 of each kernel's
@@ -40,8 +55,12 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 REPS = 5
 SHARDS = 4
-SOURCES = ("bls_rlc", "bls_h2c", "bls_shard", "bls_pairing", "bls_msm",
-           "fr_batch")
+SOURCES = {"bls": ("bls_rlc", "bls_h2c", "bls_shard", "bls_pairing",
+                   "bls_msm", "fr_batch"),
+           "epoch": ("epoch_sweep", "sha256", "records_root", "incremental")}
+SHARDS_K24 = 4
+# a call's set-up, run before it outside the timed events
+SETUPS = {}
 
 
 def _helpers():
@@ -62,10 +81,91 @@ def _digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
+def epoch_calls(cs, dev) -> tuple:
+    """The epoch group's calls {name: fn} and the digests of what the
+    in-place updates leave behind (the forests' layers), taken after the
+    calls have run."""
+    import statistics
+
+    import torch
+
+    from consensus_specs_tpu_torch import MAINNET, IncrementalEpochStep
+    from consensus_specs_tpu_torch import convert as CV
+    from consensus_specs_tpu_torch.parallel import EpochScalars
+    from consensus_specs_tpu_torch.parallel import collectives as CO
+    from consensus_specs_tpu_torch.parallel import epoch as E
+    from consensus_specs_tpu_torch.parallel import incremental as I
+    from consensus_specs_tpu_torch.parallel import merkle as M
+
+    n = cs.N_VALIDATORS
+    reg = CV.registry_to_torch(CV.synthetic_registry(n, seed=cs.SEED), dev)
+    sc = EpochScalars(*cs.SCALARS)
+    calls = {"epoch_sweep": lambda: E.epoch_sweep_kernel(reg, sc, MAINNET)}
+
+    inp = cs.IncrementalInputs(n, reg, dev)
+    step = IncrementalEpochStep(MAINNET, reg, inp.sc, inp.leaves, inp.dirty,
+                                device=dev)
+    bal, eff, _, _ = step()
+    bal_leaves = I.dirty_balance_leaves(bal, inp.chunk_idx)
+    rec = M.validator_records_root(*inp.record_args(eff),
+                                   index=inp.validator_idx)
+    fb, fr = step.balances_forest, step.registry_forest
+
+    def update(*forests):
+        """The forests' updates one after the other; their layers after."""
+        for f in forests:
+            f.update(*((inp.chunk_idx, bal_leaves) if f is fb
+                       else (inp.validator_idx, rec)))
+        return [lay for f in forests for lay in f.layers]
+
+    calls["forest_balances_update"] = lambda: update(fb)
+    calls["forest_registry_update"] = lambda: update(fr)
+    calls["forests_both_updates"] = lambda: update(fb, fr)
+
+    m = n // SHARDS_K24
+    shards = [E.RegistryArrays(*(f[d * m:(d + 1) * m].clone() for f in reg))
+              for d in range(SHARDS_K24)]
+    sums = CO.all_reduce_sum([E.sweep_totals_kernel(r, sc) for r in shards])
+    deltas = [E.sweep_deltas_kernel(r, sc, MAINNET, s, n)
+              for r, s in zip(shards, sums)]
+    got = CO.reduce_scatter_sum([acc for _, _, acc in deltas])
+    r0, s0, (rew, pen, _) = shards[0], sums[0], deltas[0]
+    calls["epoch_sweep_sharded_a"] = lambda: E.sweep_totals_kernel(r0, sc)
+    calls["epoch_sweep_sharded_b"] = lambda: E.sweep_deltas_kernel(
+        r0, sc, MAINNET, s0, n)
+    rew0, pen0 = rew.clone(), pen.clone()
+    calls["epoch_sweep_sharded_c"] = lambda: E.sweep_apply_kernel(
+        r0, sc, MAINNET, s0, rew, pen, got[0])
+    # (c) writes its results over its rewards and penalties: restore them
+    # before each call, outside the timed events
+    SETUPS["epoch_sweep_sharded_c"] = lambda: (rew.copy_(rew0),
+                                               pen.copy_(pen0))
+    calls["incremental_step"] = step
+
+    def after(ms: dict) -> dict:
+        """The step's device busy time and wall; digests of the forests'
+        layers after every update above."""
+        per = cs.try_profile("incremental step", step, 3) or {}
+        ms["incremental_step_device_busy"] = sum(per.values())
+        step()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(9):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        ms["incremental_step_wall_median"] = statistics.median(walls)
+        return {"forest_layers": _digest(list(fb.layers) + list(fr.layers))}
+
+    return calls, after
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--label", default="")
+    ap.add_argument("--group", choices=("bls", "epoch", "all"), default="all")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -77,6 +177,51 @@ def main() -> int:
         print("compare_kernels: no CUDA device", file=sys.stderr)
         return 1
     from consensus_specs_tpu_torch import _build
+
+    if root not in Path(_build.__file__).resolve().parents:
+        raise RuntimeError(f"imported {_build.__file__}, not from {root}")
+    groups = ("bls", "epoch") if args.group == "all" else (args.group,)
+    t0 = time.perf_counter()
+    _build.build(tuple(n for g in groups for n in SOURCES[g]))
+    build_s = time.perf_counter() - t0
+    dev = torch.device("cuda:0")
+    calls, after = {}, None
+    if "bls" in groups:
+        calls.update(bls_calls(cs, dev))
+    if "epoch" in groups:
+        epoch, after = epoch_calls(cs, dev)
+        calls.update(epoch)
+
+    ms, digests = {}, {}
+    for name, fn in calls.items():
+        setup = SETUPS.get(name)
+        if setup:
+            setup()
+        digests[name] = _digest(fn())
+        ms[name] = cs.device_ms(fn, REPS, setup)
+    if after:
+        digests.update(after(ms))
+    batch = None
+    if "bls" in groups:
+        batch = sum(ms[k] for k in ("hash_to_g2", "rlc_scalar_mul",
+                                    "rlc_miller_product", "final_exp_is_one"))
+    card = cs.smi("name,power.limit")
+    print(f"{args.label or root.name}: {card}; build {build_s:.1f} s "
+          f"({', '.join(groups)}); "
+          + ", ".join(f"{k} {v:.6f} ms" for k, v in ms.items())
+          + ("" if batch is None
+             else f"; config #2 device-hashing batch {batch:.6f} ms"))
+    print(json.dumps({"label": args.label, "root": str(root), "card": card,
+                      "ms": ms, "batch_device_ms": batch,
+                      "digests": digests}))
+    return 0
+
+
+def bls_calls(cs, dev) -> dict:
+    """The BLS group's calls {name: fn}: config #2's kernels, K12, the
+    sharded batch's K8, K25 and K26, K16."""
+    import torch
+
     from consensus_specs_tpu_torch import convert as CV
     from consensus_specs_tpu_torch.models.deneb import \
         polynomial_commitments as P
@@ -88,12 +233,6 @@ def main() -> int:
                                                                  hash_to_g2)
     from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
 
-    if root not in Path(_build.__file__).resolve().parents:
-        raise RuntimeError(f"imported {_build.__file__}, not from {root}")
-    t0 = time.perf_counter()
-    _build.build(SOURCES)
-    build_s = time.perf_counter() - t0
-    dev = torch.device("cuda:0")
     tasks, _ = cs.bls_tasks(cs.BLS_TASKS, cs.BLS_COMMITTEE, cs.BLS_SEED_BASE)
 
     tr = {}
@@ -144,21 +283,7 @@ def main() -> int:
     args16 = tuple(torch.from_numpy(a).to(dev) for a in FB.barycentric_inputs(
         [int(v) for v in P.blob_to_polynomial(blob)], roots, int(z)))
     calls["fr_barycentric"] = lambda: FB.barycentric(*args16)
-
-    ms, digests = {}, {}
-    for name, fn in calls.items():
-        digests[name] = _digest(fn())
-        ms[name] = cs.device_ms(fn, REPS)
-    batch = sum(ms[k] for k in ("hash_to_g2", "rlc_scalar_mul",
-                                "rlc_miller_product", "final_exp_is_one"))
-    card = cs.smi("name,power.limit")
-    print(f"{args.label or root.name}: {card}; build {build_s:.1f} s; "
-          + ", ".join(f"{k} {v:.6f} ms" for k, v in ms.items())
-          + f"; config #2 device-hashing batch {batch:.6f} ms")
-    print(json.dumps({"label": args.label, "root": str(root), "card": card,
-                      "ms": ms, "batch_device_ms": batch,
-                      "digests": digests}))
-    return 0
+    return calls
 
 
 if __name__ == "__main__":

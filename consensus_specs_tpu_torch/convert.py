@@ -79,6 +79,33 @@ def synthetic_registry(n: int, seed: int = 0) -> dict:
     )
 
 
+def edge_registry(n: int, seed: int = 0, single_active: bool = False,
+                  current_epoch: int = 100,
+                  epochs_per_slashings_vector: int = 8192,
+                  increment: int = 10**9) -> dict:
+    """`synthetic_registry(n, seed)` with the uint64 edges of the sweep's
+    divisions and saturations: effective balances 0, 1, increment - 1 and
+    2**64 - 1, inclusion delays 0, 1 and 2**64 - 1, balances 0 and
+    2**64 - 1, slashed validators at `current_epoch`'s slashing epoch,
+    proposers past the registry and negative.  With `single_active`, one
+    validator (the last) is active: the totals are one increment."""
+    reg = synthetic_registry(n, seed)
+    top = np.uint64(2**64 - 1)
+    eff, delay, bal = (reg["effective_balance"], reg["inclusion_delay"],
+                       reg["balance"])
+    eff[::7], eff[1::7], eff[2::7], eff[3::11] = 0, 1, increment - 1, top
+    delay[::5], delay[1::5], delay[2::5] = 0, 1, top
+    bal[::13], bal[1::13] = 0, top
+    reg["slashed"][::17] = True
+    reg["withdrawable_epoch"][::17] = (current_epoch
+                                       + epochs_per_slashings_vector // 2)
+    reg["proposer_index"][::19] = n + 5
+    reg["proposer_index"][1::19] = -2
+    if single_active:
+        reg["activation_epoch"][:-1] = top
+    return reg
+
+
 def synthetic_leaf_words(n: int, seed: int = 2):
     """Random (n, 8) uint32 pubkey-root and credential words, the recipe
     of `__graft_entry__.py` `dryrun_multichip`."""

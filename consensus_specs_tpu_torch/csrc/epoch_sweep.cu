@@ -9,58 +9,117 @@
 //
 // The sweep has two grid-wide dependencies (four global sums, then the
 // proposer scatter-add), so it is three kernels on one stream:
-//   (a) totals_kernel: the four sums, a block reduction per block and one
-//       64-bit atomicAdd per sum per block;
-//   (b) deltas_kernel: per validator, its rewards (atomically added into
-//       new_balance, which starts at zero) and the proposer's share
-//       (atomically added at the proposer's row), and its penalties
-//       (stored into new_effective_balance);
-//   (c) apply_kernel: balance + rewards - penalties with saturation, the
-//       slashing penalty and the hysteresis, written over those two rows.
+//   (a) sweep_totals_kernel: the four sums (a block reduction per block,
+//       one 64-bit atomicAdd per sum per block) and a zero in each row of
+//       new_balance, which then accumulates the proposer shares; the last
+//       block to arrive (a __threadfence and a counter) derives the
+//       grid-wide values once: total_active, sqrt_total, total_active /
+//       incr, the three attesting / incr quotients, the slashing
+//       adjustment, and the division magics of sqrt_total, total_incr and
+//       total_active (`Totals`, in a small device scratch);
+//   (b) sweep_shares_kernel: each unslashed source attester's proposer
+//       share, atomically added at the proposer's row of new_balance
+//       (reads effective balance, slashed, source and proposer: 14 bytes);
+//   (c) sweep_apply_kernel: per validator, its rewards and penalties,
+//       balance + rewards + the shares received - penalties with
+//       saturation, the slashing penalty and the hysteresis, stored over
+//       new_balance and new_effective_balance.
 // Integer sums wrap mod 2**64 whatever their order, so the atomics give the
-// same bits as the ordered sum.
+// same bits as the ordered sum.  About 126 bytes move per validator in all
+// (36 in (a), 14 in (b) besides the shares' atomics, 76 in (c)); each
+// thread takes 4 consecutive validators, with the uint64 fields loaded as
+// two 16-byte vectors and the four flags of one field as one 32-bit word.
+//
+// Division: every divisor but max(delay, 1) is the same across the grid,
+// and the card has no 64-bit integer divider (a u64 `/` compiles to a
+// routine of tens of instructions).  So each such quotient is a
+// multiply-high by a magic number and two shifts (`Div`, exact for every
+// uint64 dividend: Granlund and Montgomery 1994, figure 4.1), the params'
+// magics made on the host by the launcher, the totals' on the card by the
+// last block of (a).  Products that wrap mod 2**64 before a division
+// (e * base_reward_factor) wrap as before.  `/ max(delay, 1)` stays a real
+// divide, a 32-bit one where both operands fit.
 //
 // K24, the sharded sweep (replaces parallel/partition.py:248
 // sharded_epoch_step's sweep: epoch.py:111 _total with lax.psum and the
-// proposer branch at :190-202), runs the same three kernels on each
-// shard's rows with one collective after each of the first two, which
-// the host performs (parallel/collectives.py): the shards' four sums are
-// all-reduced between (a) and (b); in (b) the proposer's share goes into
-// a zeroed accumulator of n_local * D rows, indexed by the global
-// proposer index (the drop rule over the global length), and each
-// validator's own rewards are stored; the accumulators are
-// reduce-scattered between (b) and (c), and (c) adds the shard's reduced
-// slice to its rewards.  K1's kernels and epoch_sweep_launch are the
-// `false` instances of the same bodies.
+// proposer branch at :190-202), runs on each shard's rows with one
+// collective after each of its first two kernels, which the host performs
+// (parallel/collectives.py): (a) totals_kernel, the shard's four sums, are
+// all-reduced; (b) deltas_sharded_kernel stores each validator's own
+// rewards and penalties and adds the proposer's share into a zeroed
+// accumulator of n_local * D rows, indexed by the global proposer index
+// (the drop rule over the global length); the accumulators are
+// reduce-scattered; (c) apply_sharded_kernel adds the shard's reduced
+// slice to its rewards and applies.  (b) and (c) derive the grid-wide
+// values they use from the all-reduced sums once per block (warp 0), into
+// shared memory.
+// The per-validator bodies are K1's.
 //
-// Bound on an H100: device memory.  It must read 56 bytes of inputs and
-// write 16 per validator, and does a few dozen integer operations and
-// about ten 64-bit divisions on them.  The three passes move about 150
-// bytes per validator in all; the proposer scatter is random.
+// Bound on an H100: device memory.  The sweep must read 56 bytes of inputs
+// and write 16 per validator; the proposer scatter is random.
 #include <cuda_runtime.h>
 
+#include <cstddef>
 #include <cstdint>
 
 namespace {
 
 typedef unsigned long long u64;
 
-struct Params {
-  u64 base_reward_factor, base_rewards_per_epoch, proposer_reward_quotient,
-      inactivity_penalty_quotient, min_epochs_to_inactivity_penalty,
-      effective_balance_increment, max_effective_balance, hysteresis_quotient,
-      hysteresis_downward_multiplier, hysteresis_upward_multiplier,
-      epochs_per_slashings_vector, proportional_slashing_multiplier;
-};
-
-struct Scalars {
-  u64 current_epoch, finality_delay, slashings_sum;
-};
-
 constexpr int kThreads = 256;
+constexpr int kPer = 4;                    // validators a thread
+constexpr int kTotalsBlocks = 132 * 4;   // one wave of (a)
 
-__device__ __forceinline__ u64 umax(u64 a, u64 b) { return a < b ? b : a; }
-__device__ __forceinline__ u64 umin(u64 a, u64 b) { return b < a ? b : a; }
+// Exact n / d for a divisor d >= 1 fixed across the grid (Granlund and
+// Montgomery 1994, figure 4.1, N = 64): with l = ceil(log2 d),
+// m = floor(2**64 (2**l - d) / d) + 1, sh1 = min(l, 1), sh2 = max(l - 1, 0),
+// t = mulhi(m, n): n / d = (t + ((n - t) >> sh1)) >> sh2 for every u64 n.
+struct Div {
+  u64 m;
+  unsigned sh1, sh2;
+};
+
+// floor(hi * 2**64 / d) for hi < d: restoring division, one bit a step.
+__host__ __device__ inline u64 div_hi(u64 hi, u64 d) {
+  u64 q = 0;
+  for (int i = 0; i < 64; ++i) {
+    u64 top = hi >> 63;
+    hi <<= 1;
+    q <<= 1;
+    if (top || hi >= d) {
+      hi -= d;
+      q |= 1;
+    }
+  }
+  return q;
+}
+
+__host__ __device__ inline unsigned ceil_log2(u64 d) {
+  if (d <= 1) return 0;
+#ifdef __CUDA_ARCH__
+  return 64 - __clzll((long long)(d - 1));
+#else
+  return 64 - __builtin_clzll(d - 1);
+#endif
+}
+
+__host__ __device__ inline Div make_div(u64 d) {
+  unsigned l = ceil_log2(d);
+  u64 r = (l == 64 ? 0ull : 1ull << l) - d;   // 2**l - d, below d
+  Div v;
+  v.m = div_hi(r, d) + 1;
+  v.sh1 = l < 1 ? l : 1;
+  v.sh2 = l > 0 ? l - 1 : 0;
+  return v;
+}
+
+__device__ __forceinline__ u64 divide(u64 n, const Div& d) {
+  u64 t = __umul64hi(d.m, n);
+  return (t + ((n - t) >> d.sh1)) >> d.sh2;
+}
+
+__host__ __device__ inline u64 umax(u64 a, u64 b) { return a < b ? b : a; }
+__host__ __device__ inline u64 umin(u64 a, u64 b) { return b < a ? b : a; }
 
 // The JAX _isqrt_u64 step for step: float64 seed, one guarded Newton step,
 // then the exact -1/+1 corrections; exact floor sqrt for n < 2**63.
@@ -72,29 +131,125 @@ __device__ __forceinline__ u64 isqrt_u64(u64 n) {
   return x;
 }
 
+// The params and scalars as the bodies use them, made on the host.
+struct Consts {
+  u64 brf, brpe, incr, max_eb, hyst_down, hyst_up;
+  u64 cur, prev, finality_delay, slash_epoch, slash_num;
+  Div by_brpe, by_prq, by_incr, by_ipq;
+  int in_leak, genesis;
+};
+
+// The grid-wide values of one sweep, from the four global sums.
+struct Totals {
+  u64 total_active, sqrt_total, total_incr, att_q[3], adj;
+  Div by_sqrt, by_total_incr, by_total_active;
+};
+
+// K1's device scratch: the sums and arrival counter (zeroed by the
+// launcher), then the totals the last block of (a) derives.
+struct Scratch {
+  u64 sums[4];
+  unsigned arrived, pad;
+  Totals t;
+};
+
+// The totals from the four global sums, by warp 0: kDeltas, what the
+// rewards and penalties need (sqrt_total, the attesting quotients and
+// their magics), kApply, what the apply needs (adj and total_active's
+// magic).  The magics are made at once in lanes 0-2 (lane 0's after the
+// square root); lane 0's result is the one to use.
+template <bool kDeltas, bool kApply>
+__device__ __forceinline__ Totals derive(const u64 sums[4], const Consts& c) {
+  Totals t = {};
+  int lane = threadIdx.x & 31;
+  t.total_active = umax(c.incr, sums[0]);
+  t.adj = umin(c.slash_num, t.total_active);
+  if (kDeltas) {
+    t.sqrt_total = isqrt_u64(t.total_active);
+    t.total_incr = divide(t.total_active, c.by_incr);
+    for (int k = 0; k < 3; ++k) t.att_q[k] = divide(umax(c.incr, sums[k + 1]), c.by_incr);
+  }
+  u64 d = !kDeltas || lane == 2 ? t.total_active : lane == 0 ? t.sqrt_total : t.total_incr;
+  Div mine = make_div(d);
+  Div* out[3] = {kDeltas ? &t.by_sqrt : &t.by_total_active, &t.by_total_incr,
+                 &t.by_total_active};
+  for (int k = 0; k < (kDeltas ? (kApply ? 3 : 2) : 1); ++k) {
+    out[k]->m = __shfl_sync(0xffffffffu, mine.m, k);
+    out[k]->sh1 = __shfl_sync(0xffffffffu, mine.sh1, k);
+    out[k]->sh2 = __shfl_sync(0xffffffffu, mine.sh2, k);
+  }
+  return t;
+}
+
+// --- loads and stores of kPer consecutive rows -------------------------------
+
+__device__ __forceinline__ void ld4(const u64* __restrict__ p, long long i, long long n,
+                                    u64 v[kPer]) {
+  if (i + 3 < n) {
+    ulonglong2 a = __ldg(reinterpret_cast<const ulonglong2*>(p + i));
+    ulonglong2 b = __ldg(reinterpret_cast<const ulonglong2*>(p + i + 2));
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) v[k] = i + k < n ? p[i + k] : 0;
+  }
+}
+
+// rows that this kernel writes: coherent loads, no read-only cache
+__device__ __forceinline__ void ld4_rw(const u64* p, long long i, long long n, u64 v[kPer]) {
+  if (i + 3 < n) {
+    ulonglong2 a = *reinterpret_cast<const ulonglong2*>(p + i);
+    ulonglong2 b = *reinterpret_cast<const ulonglong2*>(p + i + 2);
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) v[k] = i + k < n ? p[i + k] : 0;
+  }
+}
+
+__device__ __forceinline__ void st4(u64* p, long long i, long long n, const u64 v[kPer]) {
+  if (i + 3 < n) {
+    *reinterpret_cast<ulonglong2*>(p + i) = make_ulonglong2(v[0], v[1]);
+    *reinterpret_cast<ulonglong2*>(p + i + 2) = make_ulonglong2(v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k)
+      if (i + k < n) p[i + k] = v[k];
+  }
+}
+
+// the byte flags of rows i .. i + 3, byte k of the result for row i + k
+__device__ __forceinline__ unsigned ld4_u8(const uint8_t* __restrict__ p, long long i,
+                                           long long n) {
+  if (i + 3 < n) return __ldg(reinterpret_cast<const unsigned*>(p + i));
+  unsigned r = 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k)
+    if (i + k < n) r |= (unsigned)p[i + k] << (8 * k);
+  return r;
+}
+
+__device__ __forceinline__ void ld4_i32(const int32_t* __restrict__ p, long long i, long long n,
+                                        int32_t v[kPer]) {
+  if (i + 3 < n) {
+    int4 a = __ldg(reinterpret_cast<const int4*>(p + i));
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) v[k] = i + k < n ? p[i + k] : 0;
+  }
+}
+
+__device__ __forceinline__ bool bit(unsigned flags, int k) { return (flags >> (8 * k)) & 0xffu; }
+
 __device__ __forceinline__ u64 warp_sum(u64 v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   return v;
 }
 
-// sums[0] = sum of effective balances of validators active this epoch;
-// sums[1..3] = sums over unslashed source / target / head attesters.
-__global__ void totals_kernel(const u64* __restrict__ eff, const uint8_t* __restrict__ slashed,
-                              const u64* __restrict__ act, const u64* __restrict__ exit_e,
-                              const uint8_t* __restrict__ src, const uint8_t* __restrict__ tgt,
-                              const uint8_t* __restrict__ head, long long n, u64 cur,
-                              u64* __restrict__ sums) {
-  u64 s[4] = {0, 0, 0, 0};
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    u64 e = eff[i];
-    bool uns = !slashed[i];
-    if (act[i] <= cur && cur < exit_e[i]) s[0] += e;
-    if (src[i] && uns) s[1] += e;
-    if (tgt[i] && uns) s[2] += e;
-    if (head[i] && uns) s[3] += e;
-  }
+// The block's four sums, reduced into thread 0's s[].
+__device__ __forceinline__ void block_sum4(u64 s[4]) {
   __shared__ u64 part[4][kThreads / 32];
   int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -105,234 +260,358 @@ __global__ void totals_kernel(const u64* __restrict__ eff, const uint8_t* __rest
   __syncthreads();
   if (warp == 0) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      u64 v = lane < kThreads / 32 ? part[k][lane] : 0;
-      v = warp_sum(v);
-      if (lane == 0) atomicAdd(&sums[k], v);
-    }
+    for (int k = 0; k < 4; ++k) s[k] = warp_sum(lane < kThreads / 32 ? part[k][lane] : 0);
   }
 }
 
-struct Totals {
-  u64 total_active, sqrt_total, attesting[3];
-};
+// --- (a): the four sums -------------------------------------------------------
 
-__device__ __forceinline__ Totals load_totals(const u64* sums, const Params& p) {
-  Totals t;
-  u64 incr = p.effective_balance_increment;
-  t.total_active = umax(incr, sums[0]);
-  t.sqrt_total = isqrt_u64(t.total_active);
-  for (int k = 0; k < 3; ++k) t.attesting[k] = umax(incr, sums[k + 1]);
-  return t;
-}
-
-// kSharded (K24): the proposer's share goes to acc (n_prop rows, the
-// global length) and the validator's own rewards are stored; otherwise
-// (K1) both are added into rewards, whose n rows are the whole registry.
-template <bool kSharded>
-__device__ __forceinline__ void deltas_body(const u64* __restrict__ eff, const uint8_t* __restrict__ slashed,
-                              const u64* __restrict__ act, const u64* __restrict__ exit_e,
-                              const u64* __restrict__ wd, const uint8_t* __restrict__ src,
-                              const uint8_t* __restrict__ tgt, const uint8_t* __restrict__ head,
-                              const u64* __restrict__ delay, const int32_t* __restrict__ proposer,
-                              long long n, Params p, Scalars sc, const u64* __restrict__ sums,
-                              u64* __restrict__ rewards, u64* __restrict__ penalties,
-                              long long n_prop, u64* __restrict__ acc) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Totals T = load_totals(sums, p);
-  u64 incr = p.effective_balance_increment;
-  u64 cur = sc.current_epoch;
-  u64 prev = umax(cur, 1) - 1;
-
-  u64 e = eff[i];
-  bool sl = slashed[i];
-  u64 a = act[i], x = exit_e[i];
-  bool active_prev = a <= prev && prev < x;
-  bool eligible = active_prev || (sl && prev + 1 < wd[i]);
-
-  u64 base = e * p.base_reward_factor / T.sqrt_total / p.base_rewards_per_epoch;
-  u64 prop_reward = base / p.proposer_reward_quotient;
-  bool in_leak = sc.finality_delay > p.min_epochs_to_inactivity_penalty;
-  bool uns = !sl;
-  bool flag[3] = {src[i] && uns, tgt[i] && uns, head[i] && uns};
-
-  u64 rew = 0, pen = 0;
-  u64 total_incr = T.total_active / incr;
+// sums[0] = sum of effective balances of validators active this epoch;
+// sums[1..3] = sums over unslashed source / target / head attesters.
+// kFinish (K1): also zero acc's rows, and the last block derives the totals.
+template <bool kFinish>
+__device__ __forceinline__ void totals_body(const u64* __restrict__ eff,
+                                            const uint8_t* __restrict__ slashed,
+                                            const u64* __restrict__ act,
+                                            const u64* __restrict__ exit_e,
+                                            const uint8_t* __restrict__ src,
+                                            const uint8_t* __restrict__ tgt,
+                                            const uint8_t* __restrict__ head, long long n,
+                                            u64 cur, u64* sums, u64* acc, Scratch* scratch,
+                                            Consts c) {
+  u64 s[4] = {0, 0, 0, 0};
+  const u64 zero[kPer] = {0, 0, 0, 0};
+  for (long long i = kPer * (blockIdx.x * (long long)blockDim.x + threadIdx.x); i < n;
+       i += kPer * (long long)gridDim.x * blockDim.x) {
+    u64 e[kPer], a[kPer], x[kPer];
+    ld4(eff, i, n, e);
+    ld4(act, i, n, a);
+    ld4(exit_e, i, n, x);
+    unsigned sl = ld4_u8(slashed, i, n), fs = ld4_u8(src, i, n), ft = ld4_u8(tgt, i, n),
+             fh = ld4_u8(head, i, n);
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    u64 part = base * (T.attesting[k] / incr) / total_incr;
-    u64 comp = in_leak ? base : part;
-    if (eligible && flag[k]) rew += comp;
-    if (eligible && !flag[k]) pen += base;
+    for (int k = 0; k < kPer; ++k) {
+      bool uns = !bit(sl, k);
+      if (a[k] <= cur && cur < x[k]) s[0] += e[k];
+      if (bit(fs, k) && uns) s[1] += e[k];
+      if (bit(ft, k) && uns) s[2] += e[k];
+      if (bit(fh, k) && uns) s[3] += e[k];
+    }
+    if (kFinish) st4(acc, i, n, zero);
   }
-  if (flag[0]) {
-    rew += (base - prop_reward) / umax(delay[i], 1);
-    // JAX .at[idx].add(mode="drop"): a negative index counts from the end,
-    // and an index still outside [0, n) is dropped
-    long long j = proposer[i];
+  block_sum4(s);
+  if (!kFinish) {
+    if (threadIdx.x == 0)
+      for (int k = 0; k < 4; ++k) atomicAdd(&sums[k], s[k]);
+    return;
+  }
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 4; ++k) atomicAdd(&scratch->sums[k], s[k]);
+    __threadfence();
+    last = atomicAdd(&scratch->arrived, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last && threadIdx.x < 32) {
+    __threadfence();
+    u64 total[4];
+    for (int k = 0; k < 4; ++k) total[k] = atomicAdd(&scratch->sums[k], 0ull);
+    Totals t = derive<true, true>(total, c);
+    if (threadIdx.x == 0) scratch->t = t;
+  }
+}
+
+// --- the per-validator bodies ----------------------------------------------------
+
+__device__ __forceinline__ u64 base_reward(u64 e, const Consts& c, const Totals& t) {
+  return divide(divide(e * c.brf, t.by_sqrt), c.by_brpe);
+}
+
+// (base - prop) / max(delay, 1): the one divisor that changes per validator
+__device__ __forceinline__ u64 delay_div(u64 x, u64 delay) {
+  u64 d = umax(delay, 1);
+  if (((x | d) >> 32) == 0) return (unsigned)x / (unsigned)d;
+  return x / d;
+}
+
+// Validator rows i .. i + 3: their rewards (without proposer shares
+// received) and penalties.
+__device__ __forceinline__ void deltas4(unsigned sl, const u64* __restrict__ act,
+                                        const u64* __restrict__ exit_e,
+                                        const u64* __restrict__ wd, unsigned fs, unsigned ft,
+                                        unsigned fh, const u64* __restrict__ delay, long long i,
+                                        long long n, const Consts& c, const Totals& t,
+                                        const u64 e[kPer], u64 rew[kPer], u64 pen[kPer]) {
+  u64 a[kPer], x[kPer], w[kPer], dl[kPer];
+  ld4(act, i, n, a);
+  ld4(exit_e, i, n, x);
+  ld4(wd, i, n, w);
+  ld4(delay, i, n, dl);
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    bool s = bit(sl, k);
+    bool eligible = (a[k] <= c.prev && c.prev < x[k]) || (s && c.prev + 1 < w[k]);
+    u64 base = base_reward(e[k], c, t);
+    u64 prop = divide(base, c.by_prq);
+    bool flag[3] = {bit(fs, k) && !s, bit(ft, k) && !s, bit(fh, k) && !s};
+    u64 r = 0, p = 0;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      u64 comp = c.in_leak ? base : divide(base * t.att_q[j], t.by_total_incr);
+      if (eligible && flag[j]) r += comp;
+      if (eligible && !flag[j]) p += base;
+    }
+    if (flag[0]) r += delay_div(base - prop, dl[k]);
+    if (c.in_leak && eligible) {
+      p += c.brpe * base - prop;
+      if (!flag[1]) p += divide(e[k] * c.finality_delay, c.by_ipq);
+    }
+    rew[k] = r;
+    pen[k] = p;
+  }
+}
+
+// The proposer shares of rows i .. i + 3 into acc (n_prop rows).  JAX
+// .at[idx].add(mode="drop"): a negative index counts from the end, and an
+// index still outside [0, n_prop) is dropped.
+__device__ __forceinline__ void shares4(const u64 e[kPer], unsigned sl, unsigned fs,
+                                        const int32_t* __restrict__ proposer, long long i,
+                                        long long n, const Consts& c, const Totals& t,
+                                        long long n_prop, u64* acc) {
+  int32_t pj[kPer];
+  ld4_i32(proposer, i, n, pj);
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    if (i + k >= n || !bit(fs, k) || bit(sl, k)) continue;
+    long long j = pj[k];
     if (j < 0) j += n_prop;
-    if (j >= 0 && j < n_prop) atomicAdd(&(kSharded ? acc : rewards)[j], prop_reward);
+    if (j >= 0 && j < n_prop) atomicAdd(&acc[j], divide(base_reward(e[k], c, t), c.by_prq));
   }
-  if (in_leak && eligible) {
-    pen += p.base_rewards_per_epoch * base - prop_reward;
-    if (!flag[1]) pen += e * sc.finality_delay / p.inactivity_penalty_quotient;
-  }
-  if (kSharded) {
-    rewards[i] = rew;
-  } else {
-    atomicAdd(&rewards[i], rew);
-  }
-  penalties[i] = pen;
 }
 
-__global__ void deltas_kernel(const u64* __restrict__ eff, const uint8_t* __restrict__ slashed,
-                              const u64* __restrict__ act, const u64* __restrict__ exit_e,
-                              const u64* __restrict__ wd, const uint8_t* __restrict__ src,
-                              const uint8_t* __restrict__ tgt, const uint8_t* __restrict__ head,
-                              const u64* __restrict__ delay, const int32_t* __restrict__ proposer,
-                              long long n, Params p, Scalars sc, const u64* __restrict__ sums,
-                              u64* __restrict__ rewards, u64* __restrict__ penalties) {
-  deltas_body<false>(eff, slashed, act, exit_e, wd, src, tgt, head, delay, proposer, n, p, sc,
-                     sums, rewards, penalties, n, nullptr);
+// balance + rew - pen with saturation, the slashing penalty, the
+// hysteresis: (new balance, new effective balance) of rows i .. i + 3.
+__device__ __forceinline__ void apply4(const u64* __restrict__ bal, const u64 e[kPer],
+                                       unsigned sl, const u64* __restrict__ wd, long long i,
+                                       long long n, const Consts& c, const Totals& t,
+                                       const u64 rew[kPer], const u64 pen[kPer], u64 nb[kPer],
+                                       u64 ne[kPer]) {
+  u64 b0[kPer], w[kPer];
+  ld4(bal, i, n, b0);
+  ld4(wd, i, n, w);
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    u64 b = b0[k] + (c.genesis ? 0 : rew[k]);
+    u64 p = c.genesis ? 0 : pen[k];
+    b = p > b ? 0 : b - p;
+    bool hits = bit(sl, k) && c.slash_epoch == w[k];
+    u64 slash_pen =
+        hits ? divide(divide(e[k], c.by_incr) * t.adj, t.by_total_active) * c.incr : 0;
+    b = slash_pen > b ? 0 : b - slash_pen;
+    u64 candidate = umin(divide(b, c.by_incr) * c.incr, c.max_eb);
+    bool move = b + c.hyst_down < e[k] || e[k] + c.hyst_up < b;
+    ne[k] = move ? candidate : e[k];
+    nb[k] = b;
+  }
 }
 
-__global__ void deltas_sharded_kernel(
-    const u64* __restrict__ eff, const uint8_t* __restrict__ slashed, const u64* __restrict__ act,
-    const u64* __restrict__ exit_e, const u64* __restrict__ wd, const uint8_t* __restrict__ src,
-    const uint8_t* __restrict__ tgt, const uint8_t* __restrict__ head,
-    const u64* __restrict__ delay, const int32_t* __restrict__ proposer, long long n, Params p,
-    Scalars sc, const u64* __restrict__ sums, u64* __restrict__ rewards,
-    u64* __restrict__ penalties, long long n_global, u64* __restrict__ acc) {
-  deltas_body<true>(eff, slashed, act, exit_e, wd, src, tgt, head, delay, proposer, n, p, sc,
-                    sums, rewards, penalties, n_global, acc);
+__device__ __forceinline__ long long first_row() {
+  return kPer * (blockIdx.x * (long long)blockDim.x + threadIdx.x);
 }
 
-// new_balance holds the rewards and new_effective_balance the penalties on
-// entry; both are overwritten with the results.  kSharded (K24) adds the
-// shard's reduced proposer shares `received` to the rewards.
-template <bool kSharded>
-__device__ __forceinline__ void apply_body(const u64* __restrict__ bal, const u64* __restrict__ eff,
-                             const uint8_t* __restrict__ slashed, const u64* __restrict__ wd,
-                             long long n, Params p, Scalars sc, const u64* __restrict__ sums,
-                             u64* __restrict__ new_bal, u64* __restrict__ new_eff,
-                             const u64* __restrict__ received) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+// --- K1 ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+    sweep_totals_kernel(const u64* __restrict__ eff, const uint8_t* __restrict__ slashed,
+                        const u64* __restrict__ act, const u64* __restrict__ exit_e,
+                        const uint8_t* __restrict__ src, const uint8_t* __restrict__ tgt,
+                        const uint8_t* __restrict__ head, long long n, Consts c,
+                        u64* new_bal, Scratch* scratch) {
+  totals_body<true>(eff, slashed, act, exit_e, src, tgt, head, n, c.cur, nullptr, new_bal,
+                    scratch, c);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    sweep_shares_kernel(const u64* __restrict__ eff, const uint8_t* __restrict__ slashed,
+                        const uint8_t* __restrict__ src, const int32_t* __restrict__ proposer,
+                        long long n, Consts c, const Scratch* __restrict__ scratch,
+                        u64* new_bal) {
+  long long i = first_row();
   if (i >= n) return;
-  u64 incr = p.effective_balance_increment;
-  u64 total_active = umax(incr, sums[0]);
-  u64 cur = sc.current_epoch;
-  bool genesis = cur == 0;
-
-  u64 e = eff[i];
-  u64 rew = new_bal[i];
-  if (kSharded) rew += received[i];
-  u64 b = bal[i] + (genesis ? 0 : rew);
-  u64 pen = genesis ? 0 : new_eff[i];
-  b = pen > b ? 0 : b - pen;
-
-  u64 adj = umin(sc.slashings_sum * p.proportional_slashing_multiplier, total_active);
-  bool hits = slashed[i] && cur + p.epochs_per_slashings_vector / 2 == wd[i];
-  u64 slash_pen = hits ? (e / incr) * adj / total_active * incr : 0;
-  b = slash_pen > b ? 0 : b - slash_pen;
-
-  u64 hyst = incr / p.hysteresis_quotient;
-  u64 down = hyst * p.hysteresis_downward_multiplier;
-  u64 up = hyst * p.hysteresis_upward_multiplier;
-  u64 candidate = umin(b - b % incr, p.max_effective_balance);
-  bool move = b + down < e || e + up < b;
-  new_eff[i] = move ? candidate : e;
-  new_bal[i] = b;
+  const Totals t = scratch->t;
+  u64 e[kPer];
+  ld4(eff, i, n, e);
+  shares4(e, ld4_u8(slashed, i, n), ld4_u8(src, i, n), proposer, i, n, c, t, n, new_bal);
 }
 
-__global__ void apply_kernel(const u64* __restrict__ bal, const u64* __restrict__ eff,
-                             const uint8_t* __restrict__ slashed, const u64* __restrict__ wd,
-                             long long n, Params p, Scalars sc, const u64* __restrict__ sums,
-                             u64* __restrict__ new_bal, u64* __restrict__ new_eff) {
-  apply_body<false>(bal, eff, slashed, wd, n, p, sc, sums, new_bal, new_eff, nullptr);
+__global__ void __launch_bounds__(kThreads)
+    sweep_apply_kernel(const u64* __restrict__ bal, const u64* __restrict__ eff,
+                       const uint8_t* __restrict__ slashed, const u64* __restrict__ act,
+                       const u64* __restrict__ exit_e, const u64* __restrict__ wd,
+                       const uint8_t* __restrict__ src, const uint8_t* __restrict__ tgt,
+                       const uint8_t* __restrict__ head, const u64* __restrict__ delay,
+                       long long n, Consts c, const Scratch* __restrict__ scratch,
+                       u64* new_bal, u64* __restrict__ new_eff) {
+  long long i = first_row();
+  if (i >= n) return;
+  const Totals t = scratch->t;
+  u64 e[kPer], rew[kPer], pen[kPer], got[kPer], nb[kPer], ne[kPer];
+  ld4(eff, i, n, e);
+  unsigned sl = ld4_u8(slashed, i, n);
+  deltas4(sl, act, exit_e, wd, ld4_u8(src, i, n), ld4_u8(tgt, i, n), ld4_u8(head, i, n), delay,
+          i, n, c, t, e, rew, pen);
+  ld4_rw(new_bal, i, n, got);
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) rew[k] += got[k];
+  apply4(bal, e, sl, wd, i, n, c, t, rew, pen, nb, ne);
+  st4(new_bal, i, n, nb);
+  st4(new_eff, i, n, ne);
 }
 
-__global__ void apply_sharded_kernel(const u64* __restrict__ bal, const u64* __restrict__ eff,
-                                     const uint8_t* __restrict__ slashed,
-                                     const u64* __restrict__ wd, long long n, Params p,
-                                     Scalars sc, const u64* __restrict__ sums,
-                                     u64* __restrict__ new_bal, u64* __restrict__ new_eff,
-                                     const u64* __restrict__ received) {
-  apply_body<true>(bal, eff, slashed, wd, n, p, sc, sums, new_bal, new_eff, received);
+// --- K24 --------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+    totals_kernel(const u64* __restrict__ eff, const uint8_t* __restrict__ slashed,
+                  const u64* __restrict__ act, const u64* __restrict__ exit_e,
+                  const uint8_t* __restrict__ src, const uint8_t* __restrict__ tgt,
+                  const uint8_t* __restrict__ head, long long n, u64 cur, u64* sums) {
+  totals_body<false>(eff, slashed, act, exit_e, src, tgt, head, n, cur, sums, nullptr,
+                     nullptr, Consts());
 }
 
-Params unpack_params(const u64* params) {
-  Params p;
-  p.base_reward_factor = params[0];
-  p.base_rewards_per_epoch = params[1];
-  p.proposer_reward_quotient = params[2];
-  p.inactivity_penalty_quotient = params[3];
-  p.min_epochs_to_inactivity_penalty = params[4];
-  p.effective_balance_increment = params[5];
-  p.max_effective_balance = params[6];
-  p.hysteresis_quotient = params[7];
-  p.hysteresis_downward_multiplier = params[8];
-  p.hysteresis_upward_multiplier = params[9];
-  p.epochs_per_slashings_vector = params[10];
-  p.proportional_slashing_multiplier = params[11];
-  return p;
+// The totals from the all-reduced sums, once per block into shared memory.
+template <bool kDeltas, bool kApply>
+__device__ __forceinline__ Totals block_totals(const u64* __restrict__ sums, const Consts& c) {
+  __shared__ Totals shared;
+  if (threadIdx.x < 32) {
+    u64 s[4] = {sums[0], sums[1], sums[2], sums[3]};
+    Totals t = derive<kDeltas, kApply>(s, c);
+    if (threadIdx.x == 0) shared = t;
+  }
+  __syncthreads();
+  return shared;
 }
 
-unsigned grid_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+__global__ void __launch_bounds__(kThreads)
+    deltas_sharded_kernel(const u64* __restrict__ eff, const uint8_t* __restrict__ slashed,
+                          const u64* __restrict__ act, const u64* __restrict__ exit_e,
+                          const u64* __restrict__ wd, const uint8_t* __restrict__ src,
+                          const uint8_t* __restrict__ tgt, const uint8_t* __restrict__ head,
+                          const u64* __restrict__ delay, const int32_t* __restrict__ proposer,
+                          long long n, Consts c, const u64* __restrict__ sums,
+                          u64* __restrict__ rewards, u64* __restrict__ penalties,
+                          long long n_global, u64* acc) {
+  const Totals t = block_totals<true, false>(sums, c);
+  long long i = first_row();
+  if (i >= n) return;
+  u64 e[kPer], rew[kPer], pen[kPer];
+  ld4(eff, i, n, e);
+  unsigned sl = ld4_u8(slashed, i, n), fs = ld4_u8(src, i, n);
+  deltas4(sl, act, exit_e, wd, fs, ld4_u8(tgt, i, n), ld4_u8(head, i, n), delay, i, n, c, t, e,
+          rew, pen);
+  shares4(e, sl, fs, proposer, i, n, c, t, n_global, acc);
+  st4(rewards, i, n, rew);
+  st4(penalties, i, n, pen);
+}
+
+// new_bal holds the shard's rewards and new_eff its penalties on entry
+// (the buffers of (b)); received is its reduced slice of the accumulators.
+__global__ void __launch_bounds__(kThreads)
+    apply_sharded_kernel(const u64* __restrict__ bal, const u64* __restrict__ eff,
+                         const uint8_t* __restrict__ slashed, const u64* __restrict__ wd,
+                         long long n, Consts c, const u64* __restrict__ sums, u64* new_bal,
+                         u64* new_eff, const u64* __restrict__ received) {
+  const Totals t = block_totals<false, true>(sums, c);
+  long long i = first_row();
+  if (i >= n) return;
+  u64 e[kPer], rew[kPer], pen[kPer], got[kPer], nb[kPer], ne[kPer];
+  ld4(eff, i, n, e);
+  ld4_rw(new_bal, i, n, rew);
+  ld4_rw(new_eff, i, n, pen);
+  ld4(received, i, n, got);
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) rew[k] += got[k];
+  apply4(bal, e, ld4_u8(slashed, i, n), wd, i, n, c, t, rew, pen, nb, ne);
+  st4(new_bal, i, n, nb);
+  st4(new_eff, i, n, ne);
+}
+
+// --- host side --------------------------------------------------------------------
+
+// params: the 12 EpochParams in field order; scalars: current_epoch,
+// finality_delay, slashings_sum.  The divisors (base_rewards_per_epoch,
+// proposer_reward_quotient, effective_balance_increment,
+// inactivity_penalty_quotient, hysteresis_quotient) must be nonzero.
+Consts make_consts(const u64* params, const u64* scalars) {
+  Consts c = {};
+  u64 brf = params[0], brpe = params[1], prq = params[2], ipq = params[3];
+  u64 min_leak = params[4], incr = params[5], max_eb = params[6], hq = params[7];
+  u64 down = params[8], up = params[9], epsv = params[10], psm = params[11];
+  c.brf = brf;
+  c.brpe = brpe;
+  c.incr = incr;
+  c.max_eb = max_eb;
+  u64 hyst = incr / hq;
+  c.hyst_down = hyst * down;
+  c.hyst_up = hyst * up;
+  c.cur = scalars[0];
+  c.prev = umax(c.cur, 1) - 1;
+  c.finality_delay = scalars[1];
+  c.slash_epoch = c.cur + epsv / 2;
+  c.slash_num = scalars[2] * psm;
+  c.by_brpe = make_div(brpe);
+  c.by_prq = make_div(prq);
+  c.by_incr = make_div(incr);
+  c.by_ipq = make_div(ipq);
+  c.in_leak = scalars[1] > min_leak;
+  c.genesis = c.cur == 0;
+  return c;
+}
+
+unsigned grid_for(long long n) {
+  long long groups = (n + kPer - 1) / kPer;
+  return (unsigned)((groups + kThreads - 1) / kThreads);
+}
 
 unsigned totals_grid(long long n) {
   unsigned blocks = grid_for(n);
-  return blocks < 132 * 8 ? blocks : 132 * 8;
+  return blocks < kTotalsBlocks ? blocks : kTotalsBlocks;
 }
 
 }  // namespace
 
-// params: the 12 EpochParams in field order; scalars: current_epoch,
-// finality_delay, slashings_sum; sums: 4 u64 of scratch.
+// Bytes of K1's device scratch (`scratch` below).
+extern "C" long long epoch_sweep_scratch_bytes() { return (long long)sizeof(Scratch); }
+
+// K1: scratch is epoch_sweep_scratch_bytes() of device memory; every
+// pointer 16-byte aligned.
 extern "C" int epoch_sweep_launch(const void* bal, const void* eff, const void* slashed,
                                   const void* act, const void* exit_e, const void* wd,
                                   const void* src, const void* tgt, const void* head,
                                   const void* delay, const void* proposer, long long n,
-                                  const u64* params, const u64* scalars, void* sums,
+                                  const u64* params, const u64* scalars, void* scratch,
                                   void* new_bal, void* new_eff, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  Params p;
-  p.base_reward_factor = params[0];
-  p.base_rewards_per_epoch = params[1];
-  p.proposer_reward_quotient = params[2];
-  p.inactivity_penalty_quotient = params[3];
-  p.min_epochs_to_inactivity_penalty = params[4];
-  p.effective_balance_increment = params[5];
-  p.max_effective_balance = params[6];
-  p.hysteresis_quotient = params[7];
-  p.hysteresis_downward_multiplier = params[8];
-  p.hysteresis_upward_multiplier = params[9];
-  p.epochs_per_slashings_vector = params[10];
-  p.proportional_slashing_multiplier = params[11];
-  Scalars sc = {scalars[0], scalars[1], scalars[2]};
-
-  cudaError_t err = cudaMemsetAsync(sums, 0, 4 * sizeof(u64), s);
+  Consts c = make_consts(params, scalars);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, offsetof(Scratch, t), s);
   if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(new_bal, 0, n * sizeof(u64), s);
-  if (err != cudaSuccess) return (int)err;
-
-  unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  unsigned total_blocks = blocks < 132 * 8 ? blocks : 132 * 8;
   const u64* e = (const u64*)eff;
   const uint8_t* sl = (const uint8_t*)slashed;
-  totals_kernel<<<total_blocks, kThreads, 0, s>>>(
-      e, sl, (const u64*)act, (const u64*)exit_e, (const uint8_t*)src,
-      (const uint8_t*)tgt, (const uint8_t*)head, n, sc.current_epoch, (u64*)sums);
+  const uint8_t* fs = (const uint8_t*)src;
+  Scratch* sc = (Scratch*)scratch;
+  sweep_totals_kernel<<<totals_grid(n), kThreads, 0, s>>>(
+      e, sl, (const u64*)act, (const u64*)exit_e, fs, (const uint8_t*)tgt,
+      (const uint8_t*)head, n, c, (u64*)new_bal, sc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  deltas_kernel<<<blocks, kThreads, 0, s>>>(
-      e, sl, (const u64*)act, (const u64*)exit_e, (const u64*)wd, (const uint8_t*)src,
-      (const uint8_t*)tgt, (const uint8_t*)head, (const u64*)delay,
-      (const int32_t*)proposer, n, p, sc, (const u64*)sums, (u64*)new_bal, (u64*)new_eff);
+  sweep_shares_kernel<<<grid_for(n), kThreads, 0, s>>>(e, sl, fs, (const int32_t*)proposer, n,
+                                                       c, sc, (u64*)new_bal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  apply_kernel<<<blocks, kThreads, 0, s>>>((const u64*)bal, e, sl, (const u64*)wd, n, p, sc,
-                                           (const u64*)sums, (u64*)new_bal, (u64*)new_eff);
+  sweep_apply_kernel<<<grid_for(n), kThreads, 0, s>>>(
+      (const u64*)bal, e, sl, (const u64*)act, (const u64*)exit_e, (const u64*)wd, fs,
+      (const uint8_t*)tgt, (const uint8_t*)head, (const u64*)delay, n, c, sc, (u64*)new_bal,
+      (u64*)new_eff);
   return (int)cudaGetLastError();
 }
 
@@ -363,11 +642,10 @@ extern "C" int epoch_deltas_sharded_launch(const void* eff, const void* slashed,
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(acc, 0, n_global * sizeof(u64), s);
   if (err != cudaSuccess) return (int)err;
-  Scalars sc = {scalars[0], scalars[1], scalars[2]};
   deltas_sharded_kernel<<<grid_for(n), kThreads, 0, s>>>(
       (const u64*)eff, (const uint8_t*)slashed, (const u64*)act, (const u64*)exit_e,
       (const u64*)wd, (const uint8_t*)src, (const uint8_t*)tgt, (const uint8_t*)head,
-      (const u64*)delay, (const int32_t*)proposer, n, unpack_params(params), sc,
+      (const u64*)delay, (const int32_t*)proposer, n, make_consts(params, scalars),
       (const u64*)sums, (u64*)rewards, (u64*)penalties, n_global, (u64*)acc);
   return (int)cudaGetLastError();
 }
@@ -380,10 +658,9 @@ extern "C" int epoch_apply_sharded_launch(const void* bal, const void* eff, cons
                                           const u64* scalars, const void* sums,
                                           const void* received, void* new_bal, void* new_eff,
                                           void* stream) {
-  Scalars sc = {scalars[0], scalars[1], scalars[2]};
   apply_sharded_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       (const u64*)bal, (const u64*)eff, (const uint8_t*)slashed, (const u64*)wd, n,
-      unpack_params(params), sc, (const u64*)sums, (u64*)new_bal, (u64*)new_eff,
+      make_consts(params, scalars), (const u64*)sums, (u64*)new_bal, (u64*)new_eff,
       (const u64*)received);
   return (int)cudaGetLastError();
 }

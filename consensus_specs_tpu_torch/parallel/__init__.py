@@ -21,7 +21,8 @@ from .incremental import (MerkleForest, SSZProof, _as_index,  # noqa: F401
                           ShardedMerkleForest, balances_forest,
                           dirty_balance_leaves, dirty_chunks_from_validators,
                           emit_proofs, merkleize_dirty, pad_dirty_idx,
-                          registry_forest, sharded_balances_forest,
+                          registry_forest, roots,
+                          sharded_balances_forest, update_many,
                           verify_proof)
 from .merkle import (ValidatorLeaves, balances_list_root,  # noqa: F401
                      balances_list_root_sharded, pack_u64_chunks,
@@ -109,10 +110,11 @@ class IncrementalEpochStep:
     and the registry forest over every record root (K3, K2).  Each call
     then runs the masked sweep (K1 and `torch.where`), gathers the dirty
     balance chunks (K5) and the dirty record roots (K3's gather mode),
-    and updates both forests (K4, K2), returning (new_balance,
-    new_effective_balance, balances_root, registry_root), the roots as
-    (8,) int32 words on the CPU.  `reg` itself is not changed, so every
-    call computes the same step.  On CUDA this runs the kernels; on the
+    updates both forests in one K4 launch and reads both data roots to
+    the host in one copy, returning (new_balance, new_effective_balance,
+    balances_root, registry_root), the roots as (8,) int32 words on the
+    CPU.  `reg` itself is not changed, so every call computes the same
+    step.  On CUDA this runs the kernels; on the
     CPU, or with `plain`, their plain versions."""
 
     def __init__(self, params: EpochParams, reg: RegistryArrays,
@@ -154,8 +156,8 @@ class IncrementalEpochStep:
         bal_leaves = dirty_balance_leaves(new_bal, self.chunk_idx,
                                           plain=self.plain)
         rec = self._records(new_eff, index=self.validator_idx)
-        bal_root = merkleize_dirty(self.balances_forest, self.chunk_idx,
-                                   bal_leaves)
-        reg_root = merkleize_dirty(self.registry_forest, self.validator_idx,
-                                   rec)
+        forests = (self.balances_forest, self.registry_forest)
+        update_many(zip(forests, (self.chunk_idx, self.validator_idx),
+                        (bal_leaves, rec)))
+        bal_root, reg_root = roots(forests)
         return new_bal, new_eff, bal_root, reg_root

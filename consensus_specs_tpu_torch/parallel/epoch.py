@@ -214,6 +214,8 @@ def _lib():
         [ctypes.c_void_p] * 11 + [ctypes.c_int64]
         + [ctypes.c_void_p] * 6)
     lib.epoch_sweep_launch.restype = ctypes.c_int
+    lib.epoch_sweep_scratch_bytes.argtypes = []
+    lib.epoch_sweep_scratch_bytes.restype = ctypes.c_int64
     p, i64_ = ctypes.c_void_p, ctypes.c_int64
     lib.epoch_totals_launch.argtypes = [p] * 7 + [i64_, ctypes.c_uint64, p, p]
     lib.epoch_deltas_sharded_launch.argtypes = [p] * 10 + [i64_] * 2 + [p] * 7
@@ -238,28 +240,41 @@ def _check_registry(name: str, reg: RegistryArrays) -> int:
     return n
 
 
+# the params every launch divides by, once per launch through a magic
+# number: none may be zero
+_DIVISORS = ("base_rewards_per_epoch", "proposer_reward_quotient",
+             "inactivity_penalty_quotient", "effective_balance_increment",
+             "hysteresis_quotient")
+
+
 def _c_params(params: EpochParams, sc: EpochScalars):
+    zero = [f for f in _DIVISORS if not int(getattr(params, f))]
+    if zero:
+        raise ValueError(f"epoch sweep: zero divisor params {zero}")
     return ((ctypes.c_uint64 * 12)(*(int(v) for v in params)),
             (ctypes.c_uint64 * 3)(*(int(v) for v in sc)))
 
 
 def epoch_sweep_kernel(reg: RegistryArrays, sc: EpochScalars,
                        params: EpochParams):
-    """K1 on a registry of CUDA tensors."""
+    """K1 on a registry of CUDA tensors: three launches (totals, proposer
+    shares, the fused rewards and apply) and a memset of its scratch."""
     n = _check_registry("epoch_sweep", reg)
     c_params, c_scalars = _c_params(params, sc)
     dev = reg.balance.device
-    sums = torch.empty(4, dtype=torch.int64, device=dev)
+    lib = _lib()
+    scratch = torch.empty(-(-lib.epoch_sweep_scratch_bytes() // 8),
+                          dtype=torch.int64, device=dev)
     new_bal = torch.empty(n, dtype=torch.int64, device=dev)
     new_eff = torch.empty(n, dtype=torch.int64, device=dev)
     ptrs = [reg.balance, reg.effective_balance, reg.slashed,
             reg.activation_epoch, reg.exit_epoch, reg.withdrawable_epoch,
             reg.is_source, reg.is_target, reg.is_head, reg.inclusion_delay,
             reg.proposer_index]
-    _build.check(_lib().epoch_sweep_launch(
+    _build.check(lib.epoch_sweep_launch(
         *(t.data_ptr() for t in ptrs), n,
         ctypes.addressof(c_params), ctypes.addressof(c_scalars),
-        sums.data_ptr(), new_bal.data_ptr(), new_eff.data_ptr(),
+        scratch.data_ptr(), new_bal.data_ptr(), new_eff.data_ptr(),
         _build.stream_ptr(reg.balance)), "epoch_sweep")
     _build.launches["epoch_sweep"] += 1
     return new_bal, new_eff

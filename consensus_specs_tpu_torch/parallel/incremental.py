@@ -6,12 +6,13 @@ A `MerkleForest` keeps every level of one SSZ list's data tree on the
 device, so an epoch step re-hashes only the root-to-leaf paths of the
 dirty leaves, and proofs are gathers of stored nodes:
 
-- `update_dirty` scatters the new leaf words (K4, leaf scatter), then per
-  level either hashes the pairs under the dirty parents and writes them
-  back (K4, one launch per sparse level: a level wider than the padded
-  dirty rung) or re-hashes the whole level (K2: the dense tail, every
-  level no wider than the rung).  The regime is chosen as in JAX, level
-  by level from the rung.
+- `update_dirty` scatters the new leaf words, then per level either
+  hashes the pairs under the dirty parents and writes them back (a
+  sparse level: wider than the padded dirty rung) or re-hashes the whole
+  level (the dense tail, every level no wider than the rung), the regime
+  chosen as in JAX, level by level from the rung.  On CUDA all of it is
+  one K4 launch; `update_forests` (and `update_many`, over
+  `MerkleForest`s) puts two forests' updates into that one launch.
 - `gather_proof_paths` gathers the leaf and the bottom-up sibling path
   of each index (K6); `MerkleForest.emit_proofs` adds the zero-subtree
   ladder up to the list's limit depth and the length chunk on the host.
@@ -124,11 +125,13 @@ def _use_plain(t: torch.Tensor, plain: bool) -> bool:
 def _lib():
     lib = _build.load("incremental")
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.leaf_scatter_launch.argtypes = [p, p, p, i64, i64, p]
-    lib.update_level_launch.argtypes = [p, p, p, i64, ctypes.c_int, i64, p]
+    i32 = ctypes.c_int
+    lib.forest_update_launch.argtypes = [p, p, p, p, p, p, i32, i32, i32, p,
+                                         p]
+    lib.forest_update_occupancy.argtypes = [p, p]
     lib.balance_chunks_launch.argtypes = [p, p, p, i64, i64, p]
-    lib.proof_paths_launch.argtypes = [p, ctypes.c_int, p, p, p, i64, p]
-    for f in ("leaf_scatter_launch", "update_level_launch",
+    lib.proof_paths_launch.argtypes = [p, i32, p, p, p, i64, p]
+    for f in ("forest_update_launch", "forest_update_occupancy",
               "balance_chunks_launch", "proof_paths_launch"):
         getattr(lib, f).restype = ctypes.c_int
     return lib
@@ -152,43 +155,6 @@ def update_level_plain(child, parent, idx, shift: int) -> None:
     p = shr64(idx, shift)
     p = p[p < parent.shape[0]]
     parent[p] = sha256_64B_words_plain(child.reshape(-1, 16)[p])
-
-
-def scatter_leaves(level0, idx, words, plain: bool = False) -> None:
-    """K4's leaf scatter (in place); the plain version for CPU tensors."""
-    _check_index("leaf_scatter", idx)
-    if words.shape != (idx.shape[0], 8):
-        raise ValueError(f"leaf_scatter: {idx.shape[0]} indices need "
-                         f"({idx.shape[0]}, 8) words, got "
-                         f"{tuple(words.shape)}")
-    if _use_plain(level0, plain):
-        return scatter_leaves_plain(level0, idx, words)
-    _build.require_cuda("update_level", level0, idx, words)
-    if idx.shape[0]:
-        _build.check(_lib().leaf_scatter_launch(
-            idx.data_ptr(), words.data_ptr(), level0.data_ptr(),
-            idx.shape[0], level0.shape[0], _build.stream_ptr(level0)),
-            "leaf_scatter")
-        _build.launches["update_level"] += 1
-
-
-def update_level(child, parent, idx, shift: int, plain: bool = False) -> None:
-    """K4 on one sparse level (in place); the plain version for CPU
-    tensors.  `child` has 2 len(parent) rows; `idx` are leaf indices and
-    `shift` the parent level's height."""
-    _check_index("update_level", idx)
-    if child.shape[0] != 2 * parent.shape[0] or shift < 1:
-        raise ValueError("update_level: child must have twice the parent's "
-                         "rows and shift must be >= 1")
-    if _use_plain(child, plain):
-        return update_level_plain(child, parent, idx, shift)
-    _build.require_cuda("update_level", child, parent, idx)
-    if idx.shape[0]:
-        _build.check(_lib().update_level_launch(
-            idx.data_ptr(), child.data_ptr(), parent.data_ptr(),
-            idx.shape[0], shift, parent.shape[0], _build.stream_ptr(child)),
-            "update_level")
-        _build.launches["update_level"] += 1
 
 
 def gather_balance_chunks_plain(balances, chunk_idx) -> torch.Tensor:
@@ -311,6 +277,154 @@ def build_layers(leaves, depth: int, plain: bool = False) -> tuple:
     return _hash_up(layers, plain)
 
 
+# the forests one K4 launch updates at most
+MAX_FORESTS = 2
+# threads of a K4 block: a chunk of a dense level is at most this many
+# nodes, and the levels left to block 0 at the end hold at most this many
+FOREST_THREADS = 256
+FOREST_MAX_PHASES = 8
+
+
+def update_dirty_plain(layers, dirty_idx, new_leaf_words, depth: int) -> None:
+    """The plain version of a forest's dirty-path update, level by level
+    as JAX's `_update_dirty_impl`: the leaf scatter, then a sparse level
+    (`update_level_plain`) where the level is wider than the rung, the
+    whole level (`_hash_level`) where it is not."""
+    rung = dirty_idx.shape[0]
+    scatter_leaves_plain(layers[0], dirty_idx, new_leaf_words)
+    for lvl in range(depth):
+        size = 1 << (depth - lvl - 1)       # nodes in level lvl + 1
+        if size <= rung:
+            # the dense tail: every level from here up is narrower
+            _hash_level(layers[lvl], layers[lvl + 1], True)
+        else:
+            update_level_plain(layers[lvl], layers[lvl + 1], dirty_idx,
+                               lvl + 1)
+
+
+class ForestPlan(NamedTuple):
+    """K4's walk over one launch's forests (see `csrc/incremental.cu`).
+    Per forest: `sparse`, its sparse levels 1 .. sparse; `groups`, the
+    (first block, blocks) that climb them when the indices are sorted;
+    `phases`, per dense phase j its chunks' (first level, log2 nodes),
+    or None; `tail`, the first of the levels block 0 finishes (> depth:
+    none).  `grid`: the launch's blocks."""
+
+    sparse: tuple
+    groups: tuple
+    phases: tuple
+    tail: tuple
+    grid: int
+
+
+def forest_plan(depths, rungs, co_resident: int) -> ForestPlan:
+    """The plan of one K4 launch over forests of `depths` with padded
+    dirty counts `rungs` (each >= 1), on a card where `co_resident`
+    blocks fit at once.  A level is sparse while wider than
+    the rung; the dense levels go in phases of chunks of at most
+    FOREST_THREADS nodes, each chunk up to its root, until the levels
+    left hold at most FOREST_THREADS nodes in all: those are block 0's."""
+    n = len(depths)
+    sparse = tuple(sum(1 for s in range(1, d + 1) if 1 << (d - s) > r)
+                   for d, r in zip(depths, rungs))
+    nxt = [sp + 1 for sp in sparse]
+    log_t = FOREST_THREADS.bit_length() - 1
+    phases = []
+    while sum(1 << (d - s) for d, s in zip(depths, nxt)
+              if s <= d) > FOREST_THREADS:
+        phase = []
+        for f, d in enumerate(depths):
+            if nxt[f] > d:
+                phase.append(None)
+                continue
+            k = min(log_t, d - nxt[f])
+            phase.append((nxt[f], k))
+            nxt[f] += k + 1
+        phases.append(tuple(phase))
+    if len(phases) > FOREST_MAX_PHASES:
+        raise ValueError(f"update_forests: {len(phases)} dense phases")
+    chunks = [sum(1 << (d - c[0] - c[1]) for d, c in zip(depths, ph) if c)
+              for ph in phases]
+    lanes = -(-sum(rungs) // FOREST_THREADS)
+    grid = max(1, min(co_resident, max([lanes] + chunks)))
+    # phase A's blocks, split between two forests by their sparse work
+    work = [r * max(sp, 1) for r, sp in zip(rungs, sparse)]
+    if n == 1 or grid == 1:
+        groups = ((0, grid),) * n
+    else:
+        g0 = min(grid - 1, max(1, round(grid * work[0] / sum(work))))
+        groups = ((0, g0), (g0, grid - g0))
+    return ForestPlan(sparse, groups, tuple(phases), tuple(nxt), grid)
+
+
+@functools.cache
+def _co_resident(device_index: int) -> int:
+    """The K4 blocks that fit a card at once, asked once."""
+    sms, co = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device_index):
+        _build.check(_lib().forest_update_occupancy(ctypes.byref(sms),
+                                                    ctypes.byref(co)),
+                     "update_level")
+    if co.value < 1:
+        raise RuntimeError("update_level: no K4 block fits an SM")
+    return co.value
+
+
+def _check_stack(layers, idx, words, depth: int) -> None:
+    _check_index("update_level", idx)
+    if words.shape != (idx.shape[0], 8):
+        raise ValueError(f"update_level: {idx.shape[0]} indices need "
+                         f"({idx.shape[0]}, 8) words, got "
+                         f"{tuple(words.shape)}")
+    if len(layers) != depth + 1 or any(
+            lay.shape != (1 << (depth - k), 8) for k, lay in enumerate(layers)):
+        raise ValueError(f"update_level: expected {depth + 1} halving "
+                         f"layers of {1 << depth} leaves")
+
+
+def update_forests(stacks, plain: bool = False) -> None:
+    """The dirty-path update of one or two layer stacks, in place: each
+    of `stacks` is (layers, dirty_idx, new_leaf_words, depth) as
+    `update_dirty` takes them.  On CUDA, one K4 launch for all of them
+    (every tensor on one device); for CPU tensors, or with `plain`, the
+    plain version per stack."""
+    stacks = list(stacks)
+    if not 1 <= len(stacks) <= MAX_FORESTS:
+        raise ValueError(f"update_forests: 1 to {MAX_FORESTS} forests, got "
+                         f"{len(stacks)}")
+    for layers, idx, words, depth in stacks:
+        _check_stack(layers, idx, words, depth)
+    if _use_plain(stacks[0][0][0], plain):
+        for layers, idx, words, depth in stacks:
+            update_dirty_plain(layers, idx, words, depth)
+        return
+    live = [st for st in stacks if st[1].shape[0]]
+    if not live:
+        return
+    _build.require_cuda("update_level", *(t for layers, idx, words, _ in live
+                                          for t in (*layers, idx, words)))
+    dev = live[0][1].device
+    depths, rungs = [st[3] for st in live], [st[1].shape[0] for st in live]
+    plan = forest_plan(depths, rungs, _co_resident(dev.index or 0))
+    per_forest = []
+    for f in range(len(live)):
+        per_forest += [plan.sparse[f], *plan.groups[f], plan.tail[f]]
+        for phase in plan.phases:
+            per_forest += phase[f] or (0, 0)
+    ptrs = [lay.data_ptr() for layers, *_ in live for lay in layers]
+    n = len(live)
+    unsorted = torch.empty(plan.grid, dtype=torch.int32, device=dev)
+    _build.check(_lib().forest_update_launch(
+        (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * n)(*depths),
+        (ctypes.c_void_p * n)(*(st[1].data_ptr() for st in live)),
+        (ctypes.c_void_p * n)(*(st[2].data_ptr() for st in live)),
+        (ctypes.c_int64 * n)(*rungs),
+        (ctypes.c_int * len(per_forest))(*per_forest), n,
+        len(plan.phases), plan.grid, unsorted.data_ptr(),
+        _build.stream_ptr(live[0][1])), "update_level")
+    _build.launches["update_level"] += 1
+
+
 def update_dirty(layers, dirty_idx, new_leaf_words, depth: int,
                  plain: bool = False) -> tuple:
     """Re-hash the dirty root-to-leaf paths of a layer stack, in place.
@@ -318,18 +432,9 @@ def update_dirty(layers, dirty_idx, new_leaf_words, depth: int,
     layers: depth + 1 tensors (`build_layers`); dirty_idx: (M,) int64 leaf
     indices padded with the sentinel 2**depth (out-of-range rows are
     dropped); new_leaf_words: (M, 8) int32.  Duplicate indices must carry
-    equal words.  Per level: K4 where the level is wider than M, K2 over
-    the whole level where it is not.  Returns `layers`."""
-    rung = dirty_idx.shape[0]
-    scatter_leaves(layers[0], dirty_idx, new_leaf_words, plain=plain)
-    for lvl in range(depth):
-        size = 1 << (depth - lvl - 1)       # nodes in level lvl + 1
-        if size <= rung:
-            # the dense tail: every level from here up is narrower
-            _hash_level(layers[lvl], layers[lvl + 1], plain)
-        else:
-            update_level(layers[lvl], layers[lvl + 1], dirty_idx, lvl + 1,
-                         plain=plain)
+    equal words.  One K4 launch on CUDA (`update_forests`).  Returns
+    `layers`."""
+    update_forests([(layers, dirty_idx, new_leaf_words, depth)], plain)
     return layers
 
 
@@ -492,10 +597,15 @@ class MerkleForest:
         paths.  Indices >= `capacity` are dropped, so callers may pad to a
         rung themselves with `pad_dirty_idx` and keep both arrays on the
         device; shorter leaf words are zero-padded to the rung."""
+        update_many([(self, dirty_idx, new_leaf_words)])
+
+    def _dirty_stack(self, dirty_idx, new_leaf_words):
+        """(layers, padded indices, leaf words, depth) for `update_forests`,
+        or None for an empty dirty set."""
         idx = _as_index(dirty_idx)
         m = idx.shape[0]
         if m == 0:
-            return
+            return None
         if _bucket(m) != m:
             idx = pad_dirty_idx(idx, self.capacity)
         idx = idx.to(self.device)
@@ -506,16 +616,15 @@ class MerkleForest:
         if leaves.shape[0] < rung:
             leaves = torch.cat([leaves, leaves.new_zeros(
                 (rung - leaves.shape[0], 8))])
-        update_dirty(self.layers, idx, leaves, self.data_depth, self.plain)
+        return self.layers, idx, leaves, self.data_depth
 
     def root_bytes(self) -> bytes:
         """The list's hash_tree_root, 32 bytes."""
-        return _finish_root(_words_to_bytes(self.layers[-1][0]),
-                            self.data_depth, self.limit_depth, self.length)
+        return roots_bytes([self])[0]
 
     def root(self) -> torch.Tensor:
         """The list's hash_tree_root as (8,) int32 words on the CPU."""
-        return _bytes_to_words(self.root_bytes())
+        return roots([self])[0]
 
     def emit_proofs(self, indices) -> list:
         """SSZ single-proofs for the leaf chunks `indices`: one gather of
@@ -534,6 +643,31 @@ class MerkleForest:
         return _assemble_proofs((to_numpy_u32(leaves), to_numpy_u32(paths)),
                                 indices, self.data_depth, self.limit_depth,
                                 self.length)
+
+
+def update_many(updates) -> None:
+    """Apply one dirty-set update to each of one or two `MerkleForest`s on
+    one device: `updates` holds (forest, dirty_idx, new_leaf_words) as
+    `MerkleForest.update` takes them; one K4 launch on CUDA for all."""
+    updates = list(updates)
+    stacks = [st for f, idx, words in updates
+              if (st := f._dirty_stack(idx, words)) is not None]
+    if stacks:
+        update_forests(stacks, plain=any(f.plain for f, _, _ in updates))
+
+
+def roots_bytes(forests) -> list:
+    """Each forest's list root (32 bytes), their data roots read from the
+    device in one copy."""
+    data = to_numpy_u32(torch.stack([f.layers[-1][0] for f in forests]))
+    return [_finish_root(_words_to_bytes(row), f.data_depth, f.limit_depth,
+                         f.length) for f, row in zip(forests, data)]
+
+
+def roots(forests) -> list:
+    """Each forest's list root as (8,) int32 words on the CPU, their data
+    roots read from the device in one copy."""
+    return [_bytes_to_words(r) for r in roots_bytes(forests)]
 
 
 def merkleize_dirty(forest: MerkleForest, dirty_idx,

@@ -132,6 +132,74 @@ def test_update_dirty_kernel(dev, depth, dirty):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+@pytest.mark.parametrize("single_active", [False, True])
+@pytest.mark.parametrize("scalars", [(100, 2, 32 * 10**9), (100, 2, 2**63),
+                                     (100, 9, 2**64 - 1), (0, 0, 0)])
+def test_epoch_sweep_kernel_edge_registry(dev, single_active, scalars):
+    """K1's exact divisions and saturations at their edges: effective
+    balances 0, 1, incr - 1, 2**64 - 1, delays 0, 1, 2**64 - 1, one active
+    validator, a slashing adjustment equal to the active balance."""
+    reg = C.registry_to_torch(C.edge_registry(4099,
+                                              single_active=single_active),
+                              dev)
+    sc = EpochScalars(*scalars)
+    got = E.epoch_sweep_kernel(reg, sc, MAINNET)
+    want = E.epoch_sweep_plain(reg, sc, MAINNET)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _equal_dups(words, idx):
+    first = {}
+    for k, v in enumerate(idx.tolist()):
+        words[k] = words[first.setdefault(v, k)]
+    return words
+
+
+@pytest.mark.parametrize("depth,dirty", [
+    (0, [0]),                                   # one leaf, no level
+    (1, [1, 1]),                                # one level, duplicates
+    (10, list(range(1024))),                    # every level dense
+    (10, [5, 5, 5, 9, 1023, 1023]),             # duplicates, equal words
+    (12, [4095, 3, 2048, 0, 77, 3]),            # unsorted
+    (12, list(range(1000, 1300))),              # one long run, rung 1024
+])
+def test_forest_update_kernel_edges(dev, depth, dirty):
+    cap = 1 << depth
+    idx = I.pad_dirty_idx(_idx(dev, dirty), cap)
+    new = _equal_dups(_words(dev, idx.shape[0], depth + 2), idx)
+    got = I.build_layers(_words(dev, cap, depth), depth)
+    want = [lay.clone() for lay in got]
+    before = _build.launches["update_level"]
+    I.update_dirty(got, idx, new, depth)
+    I.update_dirty(want, idx, new, depth, plain=True)
+    torch.cuda.synchronize()
+    assert _build.launches["update_level"] == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_forest_update_two_forests_in_one_launch(dev):
+    stacks, singles, plains = [], [], []
+    for depth, dirty in ((12, list(range(7, 4096, 13))), (9, [3, 4, 100])):
+        cap = 1 << depth
+        idx = I.pad_dirty_idx(_idx(dev, dirty), cap)
+        layers = I.build_layers(_words(dev, cap, depth), depth)
+        words = _words(dev, idx.shape[0], depth + 3)
+        stacks.append((layers, idx, words, depth))
+        singles.append(([lay.clone() for lay in layers], idx, words, depth))
+        plains.append(([lay.clone() for lay in layers], idx, words, depth))
+    before = _build.launches["update_level"]
+    I.update_forests(stacks)
+    assert _build.launches["update_level"] == before + 1
+    for st in singles:
+        I.update_dirty(*st)
+    for st in plains:
+        I.update_dirty(*st, plain=True)
+    torch.cuda.synchronize()
+    for a, b, c in zip(stacks, singles, plains):
+        assert all(torch.equal(x, y) and torch.equal(x, z)
+                   for x, y, z in zip(a[0], b[0], c[0]))
+
+
 def test_balance_chunks_kernel(dev):
     n = 4099
     v = C.from_numpy_u64(np.arange(n, dtype=np.uint64) * 0x9E3779B97F4A7C15,
