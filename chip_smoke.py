@@ -87,6 +87,15 @@ and PyTorch built for CUDA.  The script:
    points), at n = 8 against the naive evaluation and the round trip;
    K18 at batch 64, n = 128 and K20 (`fk20_hext`) at (64, 128) on the
    setup tables and a dense blob's digits against their plain versions;
+   K19 at n = 8 and 16 with masked lanes and rows at infinity, its n = 8
+   round trip (the addition's doubling branch) and K20 at 8 x 16 with a
+   doubled bucket, a point beside its negative and a masked infinity
+   against their plain versions; K19's plain versions (the setup's in
+   blocks of rows) and the edges' are computed on the CPU by worker
+   processes at a low priority while nvcc builds and the card runs the
+   earlier phases; one pass round's product
+   latency (`kernels.g1_product_chain`) and each chain's floor (its pass
+   rounds times that latency);
 15. fulu `compute_cells_and_kzg_proofs` by FK20 on the closed-form
    degree-65 blob (K18, K15, K20, K19 x 2): cells and proofs equal to
    the closed form, the cold call (the setup tables built by one K19)
@@ -205,6 +214,18 @@ FR_FIELD_N = 1024
 # slice 6: the producer's and the recovery's warm repeats
 DAS_PRODUCER_TIMED = 3
 DAS_RECOVER_TIMED = 3
+# K19's edge transforms (n, batch, inverse), beside the main path's (1,
+# 128) and (64, 128); K20's edge shape (residues, positions); the
+# products of the latency probe's chain
+G1FFT_EDGE = ((8, 3, False), (16, 1, False), (16, 3, True))
+FK20_EDGE = (8, 16)
+# the rows of the setup's (64, 128) plain K19 forward a worker computes
+# (one torch thread each: two threads a worker ran 2.5x slower than one
+# beside nvcc), and the workers' nice increment (below nvcc and the card's
+# phases)
+G1_PLAIN_ROWS = 16
+G1_PLAIN_NICE = 10
+G1_CHAIN_PROBE = 4096
 # slice 7, fork choice: (path, blocks, validators, batch): bench.py:897
 # worker_forkchoice's default CST_FC_MATRIX with its batches of 1024, then
 # the mainnet width (1024 unfinalized blocks, 2**20 validators, batches of
@@ -238,7 +259,7 @@ K8_EDGE_SCALARS = (0, 1, 2, 3, 2**128 - 1)
 # and 163 products
 OPS_PER_FR_MONT = 2 * 64 * 2
 FR_INV_PRODUCTS = 254 + 163
-# a CIOS Montgomery product over 12 32-bit words is 2 x 144 32x32->64
+# a Montgomery product over 12 32-bit words is 2 x 144 32x32->64
 # multiply-adds, each at least two 32-bit integer instructions (the low
 # and the high half); the carries and the final subtraction are not
 # counted, so the bound is a floor
@@ -979,7 +1000,8 @@ def check_bls_field_kernels(dev, record, int32_ops_per_s):
     a12[0] = 0
     lazy = torch.from_numpy(np.random.RandomState(SEED).randint(
         -2**13, 2**13, (n, 33)).astype(np.int32)).to(dev)
-    cases = [("fq_mul", a1, b1, 0), ("fq_inv", a1, None, 0),
+    cases = [("fq_mul", a1, b1, 0), ("fq_add", a1, b1, 0),
+             ("fq_sub", a1, b1, 0), ("fq_inv", a1, None, 0),
              ("fq_canon", lazy, None, 0), ("fq2_mul", a2, b2, 0),
              ("fq2_inv", a2, None, 0), ("fq12_mul", a12, b12, 0),
              ("fq12_sqr", a12, None, 0), ("fq12_inv", a12, None, 0),
@@ -996,7 +1018,8 @@ def check_bls_field_kernels(dev, record, int32_ops_per_s):
         raise AssertionError("bls_field_ops: inv(0) is not 0")
     counts = read_launches("bls field checks")
     print(f"bls field checks: {len(cases)} ops on {n} elements each "
-          f"(fq_mul and fq_inv also on 0, 1, 1/R, p - 1, p): equal")
+          f"(fq_mul, fq_add, fq_sub and fq_inv also on 0, 1, 1/R, p - 1, "
+          f"p): equal")
     record("bls_field_ops", "consensus_specs_tpu_torch/csrc/bls_rlc.cu",
            "consensus_specs_tpu/ops/bls_batch/tower.py:224", err,
            device_ms(lambda: K.field_op("fq12_mul", a12, b12), 5),
@@ -2476,6 +2499,301 @@ def hext_products(digits) -> int:
                for j in range(digits.shape[1]))
 
 
+def g1fft_chain_rounds(n: int, inverse: bool) -> int:
+    """K19's chain in pass rounds (a doubling 3, an addition 5: each one
+    product deep): in each butterfly round the longest lane's (the table
+    up to its top digit, 4 doublings and an addition of each nonzero
+    digit after its first one, the butterfly's two additions), summed
+    over the rounds; for the inverse, the 1/n scale's (a doubling a bit
+    after the leading one, an addition a set bit)."""
+    from consensus_specs_tpu_torch.ops.bls_batch import g1fft as G
+
+    total = 0
+    for rnd in G._stage_plan(n, inverse)[2]:
+        worst = 0
+        for row in rnd:
+            lane = 10
+            nz = np.flatnonzero(row)
+            if len(nz):
+                lane += sum(3 if d % 2 == 0 else 5
+                            for d in range(2, int(row.max()) + 1))
+                after = row[nz[0] + 1:]
+                lane += 12 * len(after) + 5 * int(np.count_nonzero(after))
+            worst = max(worst, lane)
+        total += worst
+    if inverse:
+        bits = G._inv_bits(n)
+        total += 3 * (len(bits) - 1) + 5 * (int(bits.sum()) - 1)
+    return total
+
+
+def hext_chain_rounds(digits) -> int:
+    """K20's chain in pass rounds for these digits (R, width, 64), the
+    longest position's: its longest window's bucket pass (5 a row added
+    into a bucket that holds a point already), its longest suffix sum (5
+    an addition of two finite sums), the combine (4 doublings and an
+    addition a window after the first window with a nonzero digit)."""
+    worst = 0
+    for j in range(digits.shape[1]):
+        bucket = suffix = comb = 0
+        first = None
+        for w in range(digits.shape[2]):
+            col = digits[:, j, w]
+            nz = col[col != 0].tolist()
+            have = set(nz)
+            bucket = max(bucket, 5 * (len(nz) - len(have)))
+            run = acc = False
+            rounds = 0
+            for k in range(15, 0, -1):
+                rounds += 5 if run and k in have else 0
+                run = run or k in have
+                rounds += 5 if acc and run else 0
+                acc = acc or run
+            suffix = max(suffix, rounds)
+            if first is not None:
+                comb += 12 + (5 if nz else 0)
+            elif nz:
+                first = w
+        worst = max(worst, bucket + suffix + comb)
+    return worst
+
+
+def g1_product_latency_us(dev) -> float:
+    """One pass round's product on the card, in us: K19's and K20's
+    product call (an operand pick, the Fp product, its store to shared
+    memory) timed over a chain of G1_CHAIN_PROBE dependent products on
+    one thread, less the empty chain's launch; the chain's value held
+    against the host's a^(2^n)."""
+    from consensus_specs_tpu_torch.ops.bls.fields import Q
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+
+    a = F.const(F.to_mont(7), dev)
+    got = F.from_mont(K.g1_product_chain(a, G1_CHAIN_PROBE).cpu().numpy())
+    if got != pow(7, 2**G1_CHAIN_PROBE, Q):
+        raise AssertionError("g1_product_chain: wrong value")
+    full = device_ms(lambda: K.g1_product_chain(a, G1_CHAIN_PROBE), 5)
+    empty = device_ms(lambda: K.g1_product_chain(a, 0), 5)
+    return (full - empty) / G1_CHAIN_PROBE * 1e3
+
+
+def g1fft_edge_inputs() -> dict:
+    """K19's and K20's edge inputs, numpy, made on the host.  For each
+    (n, batch, inverse) of G1FFT_EDGE, rows of multiples of G1 in
+    bit-reversed order: row 0 ends in two infinities; row 1 has two
+    masked lanes (Z = 0 under a point's X and Y, as `das/compute.py`
+    masks the proofs' lanes); row 2 is masked whole.  For K20 at
+    FK20_EDGE, seeded points and scalars with an infinity under a point's
+    X and Y, a position of zero scalars, a point added twice into the
+    same buckets (the doubling branch) and a point beside its negative
+    with equal scalars."""
+    import random
+
+    from consensus_specs_tpu_torch.ops.bls import curve as Cv
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+    from consensus_specs_tpu_torch.ops.bls_batch import g1fft as G
+    from consensus_specs_tpu_torch.ops.bls_batch.curve import \
+        scalars_to_digits
+
+    out = {}
+    for n, batch, inverse in G1FFT_EDGE:
+        coords, rows = [], []
+        for b in range(batch):
+            row = [Cv.g1.mul(Cv.G1_GEN, 3 + 7 * b + i) for i in range(n - 2)]
+            row += [Cv.g1.infinity()] * 2
+            xyz = G.points_to_limbs(row)
+            masked = {1: (1, n - 3), 2: range(n)}.get(b, ())
+            for k in masked:
+                xyz[2][k] = 0
+                row[k] = Cv.g1.infinity()
+            coords.append(xyz)
+            rows.append(row)
+        perm = list(G._bitrev_perm(n))
+        x, y, z = (np.stack([c[i] for c in coords])[:, perm] for i in range(3))
+        out[("fft", n, batch, inverse)] = (x, y, z, rows)
+    rng = random.Random(SEED + 13)
+    n_res, width = FK20_EDGE
+    pts = [[Cv.g1.mul(Cv.G1_GEN, rng.randrange(1, 2**32))
+            for _ in range(width)] for _ in range(n_res)]
+    scalars = [[rng.randrange(G.R_MODULUS) for _ in range(width)]
+               for _ in range(n_res)]
+    pts[5][2], scalars[5][2] = pts[2][2], scalars[2][2]
+    pts[6][3], scalars[6][3] = Cv.g1.neg(pts[1][3]), scalars[1][3]
+    for c in range(n_res):
+        scalars[c][4] = 0
+    x, y, z = (np.stack([[F.to_mont(p[i]) for p in row] for row in pts])
+               for i in range(3))
+    z[3, 1] = 0
+    pts[3][1] = Cv.g1.infinity()
+    digits = scalars_to_digits([v for row in scalars for v in row], 255,
+                               4).reshape(n_res, width, 64)
+    out["hext"] = (x, y, z, digits, pts, scalars)
+    return out
+
+
+def g1fft_edge_plain() -> dict:
+    """The plain versions on the CPU, one torch thread, on
+    `g1fft_edge_inputs`: each edge transform, the inverse of the n = 8
+    forward output (the round trip, whose last round meets u - t = 2u),
+    K20; canonical numpy coordinates.  `main` runs it in a worker
+    process beside the card's phases."""
+    import torch
+
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+    from consensus_specs_tpu_torch.ops.bls_batch import g1fft as G
+
+    out = {}
+    for key, val in g1fft_edge_inputs().items():
+        t = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in val[:3])
+        if key == "hext":
+            p = G.hext(*t, torch.from_numpy(val[3]), plain=True)
+        else:
+            p = G.fft(*t, inverse=key[3], plain=True)
+        out[key] = tuple(F.fq_canon(c).numpy() for c in p)
+        if key[0] == "fft" and key[1] == 8:
+            perm = torch.tensor(G._bitrev_perm(8))
+            back = G.fft(*(F.fq_canon(c)[:, perm].contiguous() for c in p),
+                         inverse=not key[3], plain=True)
+            out[("round_trip", 8)] = tuple(F.fq_canon(c).numpy()
+                                           for c in back)
+    return out
+
+
+def g1fft_setup_inputs(start: int, stop: int) -> tuple:
+    """K19's main-path input: rows start .. stop - 1 of the L x K trusted
+    setup residue vectors, padded to N with infinities, in bit-reversed
+    order; numpy (x, y, z), each (stop - start, N, 33)."""
+    from consensus_specs_tpu_torch.das import ciphersuite as cs
+    from consensus_specs_tpu_torch.das import compute as DC
+    from consensus_specs_tpu_torch.ops.bls_batch import g1fft as G
+
+    L, KK, N = DC.L, DC.K, DC.N_EXT
+    limbs = [G.points_to_limbs([cs.setup_g1_point(c + L * v)
+                                for v in range(KK)], pad_to=N)
+             for c in range(start, stop)]
+    perm = list(G._bitrev_perm(N))
+    return tuple(np.ascontiguousarray(np.stack([lb[i] for lb in limbs])[
+        :, perm]) for i in range(3))
+
+
+def _plain_worker_init() -> None:
+    """A plain-reference worker runs below nvcc and the card's phases, on
+    one torch thread."""
+    import os
+
+    import torch
+
+    os.nice(G1_PLAIN_NICE)
+    torch.set_num_threads(1)
+
+
+def _timed_plain(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def g1fft_plain_rows(start: int) -> tuple:
+    """The plain K19 forward on G1_PLAIN_ROWS rows of the setup residue
+    vectors from `start` (the transform works row by row, so these rows
+    of the (L, N) plain output): (canonical numpy (x, y, z), ms) on the
+    CPU.  `main` runs it in a worker process."""
+    import torch
+
+    from consensus_specs_tpu_torch.das import compute as DC
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+    from consensus_specs_tpu_torch.ops.bls_batch import g1fft as G
+
+    x, y, z = (torch.from_numpy(a) for a in
+               g1fft_setup_inputs(start, min(start + G1_PLAIN_ROWS, DC.L)))
+    p, ms = _timed_plain(lambda: G.fft(x, y, z, plain=True))
+    return tuple(F.fq_canon(c).numpy() for c in p), ms
+
+
+def g1fft_plain_inverse() -> tuple:
+    """The plain K19 at (1, N) inverse on the first setup table row (the
+    plain (1, N) forward of the first residue vector, canonical, in
+    bit-reversed order) on the CPU: (inputs, out, ms), canonical numpy.
+    `main` runs it in a worker process."""
+    import torch
+
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+    from consensus_specs_tpu_torch.ops.bls_batch import g1fft as G
+
+    x, y, z = (torch.from_numpy(a) for a in g1fft_setup_inputs(0, 1))
+    row = G.fft(x, y, z, plain=True)
+    perm = torch.tensor(G._bitrev_perm(x.shape[1]))
+    args = tuple(F.fq_canon(c)[:, perm].contiguous() for c in row)
+    p, ms = _timed_plain(lambda: G.fft(*args, inverse=True, plain=True))
+    return (tuple(c.numpy() for c in args),
+            tuple(F.fq_canon(c).numpy() for c in p), ms)
+
+
+# the worker processes of the G1 FFT phase's plain versions, started once
+# the port imports: the pool and each task's pending result
+EDGE = {}
+
+
+def check_g1fft_edges(dev) -> tuple:
+    """K19 and K20 on `g1fft_edge_inputs`, against the plain versions
+    (from EDGE's worker) by `_same_points`: each edge transform; the
+    inverse of K19's n = 8 forward output (the doubling branch), whose
+    points must come back to the rows; K20, whose points must equal the
+    oracle's per-position `g1.msm`."""
+    import torch
+
+    from consensus_specs_tpu_torch.ops.bls import curve as Cv
+    from consensus_specs_tpu_torch.ops.bls_batch import g1fft as G
+
+    inputs = g1fft_edge_inputs()
+    t0 = time.perf_counter()
+    plain = EDGE["edge"].get(timeout=900)
+    wait = time.perf_counter() - t0
+    err19 = 0
+    for key, val in inputs.items():
+        if key == "hext":
+            continue
+        _, n, batch, inverse = key
+        args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in val[:3])
+        got = G.fft(*args, inverse=inverse)
+        want = tuple(torch.from_numpy(a).to(dev) for a in plain[key])
+        err19 = max(err19, _same_points(f"g1_fft edge {key[1:]}", got, want))
+        if n != 8:
+            continue
+        perm = torch.tensor(G._bitrev_perm(n), device=dev)
+        back = G.fft(*(c[:, perm].contiguous() for c in got),
+                     inverse=not inverse)
+        want = tuple(torch.from_numpy(a).to(dev)
+                     for a in plain[("round_trip", 8)])
+        err19 = max(err19, _same_points("g1_fft edge round trip (n = 8)",
+                                        back, want))
+        pts = G.limbs_to_oracle_list(back)
+        for b, row in enumerate(val[3]):
+            for i, pt in enumerate(row):
+                if not Cv.g1.eq_points(pts[n * b + i], pt):
+                    raise AssertionError(f"g1_fft edge round trip: row {b} "
+                                         f"lane {i} differs")
+    x, y, z, digits, pts, scalars = inputs["hext"]
+    got = G.hext(*(torch.from_numpy(a).to(dev) for a in (x, y, z, digits)))
+    want = tuple(torch.from_numpy(a).to(dev) for a in plain["hext"])
+    err20 = _same_points(f"fk20_hext edge {FK20_EDGE}", got, want)
+    out = G.limbs_to_oracle_list(got)
+    for j in range(FK20_EDGE[1]):
+        msm = Cv.g1.msm([row[j] for row in pts], [row[j] for row in scalars])
+        if not Cv.g1.eq_points(out[j], msm):
+            raise AssertionError(f"fk20_hext edge: position {j} differs "
+                                 "from g1.msm")
+    print(f"g1 fft edges: K19 at {[k[1:] for k in inputs if k != 'hext']} "
+          f"(masked lanes, infinities, a row at infinity) and the n = 8 "
+          f"round trip, K20 at {FK20_EDGE} (a stale infinity, zero "
+          f"scalars, a doubled bucket, a point and its negative) equal to "
+          f"the plain versions (computed on the CPU beside the card's "
+          f"phases; {wait:.3f} s waited for them), the round trip to its "
+          f"rows, K20 to g1.msm")
+    return err19, err20
+
+
 def check_g1fft_kernels(dev, record, int32_ops_per_s):
     """K19 against its plain version on the card at the setup shape (64,
     128), forward, on the trusted setup's residue vectors, and at (1,
@@ -2483,7 +2801,8 @@ def check_g1fft_kernels(dev, record, int32_ops_per_s):
     the setup points); at n = 8 against the naive per-point evaluation
     and the round trip.  K20 against its plain version at (64, 128) on
     the setup tables and the dense blob's digits, K18 at batch 64, n =
-    128 against its plain version on the way."""
+    128 against its plain version on the way.  Then the edge shapes
+    (`check_g1fft_edges`) and the chains' floors."""
     import torch
 
     from consensus_specs_tpu_torch import _build
@@ -2498,35 +2817,39 @@ def check_g1fft_kernels(dev, record, int32_ops_per_s):
 
     L, KK, N = DC.L, DC.K, DC.N_EXT
     t0 = time.perf_counter()
-    limbs = [G.points_to_limbs([cs.setup_g1_point(c + L * v)
-                                for v in range(KK)], pad_to=N)
-             for c in range(L)]
-    x, y, z = (torch.from_numpy(np.stack([lb[i] for lb in limbs])).to(dev)
-               for i in range(3))
+    fwd_args = tuple(torch.from_numpy(a).to(dev)
+                     for a in g1fft_setup_inputs(0, L))
     print(f"g1 fft inputs: the {L} x {KK} setup residue vectors padded to "
           f"{N}, parsed in {time.perf_counter() - t0:.3f} s")
     perm = torch.tensor(G._bitrev_perm(N), device=dev)
-    fwd_args = tuple(c[:, perm].contiguous() for c in (x, y, z))
     _build.reset_launches()
     k19 = G.fft(*fwd_args)
     torch.cuda.synchronize()
     if _build.launches["g1_fft"] != 1:
         raise AssertionError("K19 did not launch")
+    # K19's plain versions at n = N, from the workers that `main` started;
+    # the setup's plain ms is the sum of its row blocks' ms
     t0 = time.perf_counter()
-    p19 = G.fft(*fwd_args, plain=True)
-    torch.cuda.synchronize()
-    plain_fwd = (time.perf_counter() - t0) * 1e3
-    err = _same_points(f"g1_fft ({L}, {N}) forward", k19, p19)
+    blocks = [EDGE[("rows", r)].get(timeout=900)
+              for r in range(0, L, G1_PLAIN_ROWS)]
+    worker_in, p19i, plain_inv = EDGE["inverse"].get(timeout=900)
+    wait = time.perf_counter() - t0
+    plain_fwd = sum(ms for _, ms in blocks)
+    err = _same_points(f"g1_fft ({L}, {N}) forward", k19, tuple(
+        torch.from_numpy(np.concatenate([b[0][i] for b in blocks])).to(dev)
+        for i in range(3)))
     fwd_ms = device_ms(lambda: G.fft(*fwd_args), 3)
 
     inv_args = tuple(c[:1][:, perm].contiguous() for c in k19)
     k19i = G.fft(*inv_args, inverse=True)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    p19i = G.fft(*inv_args, inverse=True, plain=True)
-    torch.cuda.synchronize()
-    plain_inv = (time.perf_counter() - t0) * 1e3
-    err = max(err, _same_points(f"g1_fft (1, {N}) inverse", k19i, p19i))
+    if not all(torch.equal(a, torch.from_numpy(b).to(dev))
+               for a, b in zip(inv_args, worker_in)):
+        raise AssertionError("g1_fft: the inverse's input differs from the "
+                             "plain forward's first row")
+    err = max(err, _same_points(f"g1_fft (1, {N}) inverse", k19i,
+                                tuple(torch.from_numpy(c).to(dev)
+                                      for c in p19i)))
     back = G.limbs_to_oracle_list(k19i)
     for v in range(N):
         want = (cs.setup_g1_point(L * v) if v < KK else g1.infinity())
@@ -2589,6 +2912,19 @@ def check_g1fft_kernels(dev, record, int32_ops_per_s):
     one_products = g1fft_products(N, 1, False)
     h_products = hext_products(digits.cpu().numpy())
     to_ms = OPS_PER_MONT / int32_ops_per_s * 1e3
+    err_edge19, err_edge20 = check_g1fft_edges(dev)
+    err, err20 = max(err, err_edge19), max(err20, err_edge20)
+    # the chains' floor: their pass rounds times one product's latency
+    lat_us = g1_product_latency_us(dev)
+    inv_rounds = g1fft_chain_rounds(N, True)
+    fwd_rounds = g1fft_chain_rounds(N, False)
+    h_rounds = hext_chain_rounds(digits.cpu().numpy())
+    print(f"g1 fft chains: a pass round's product {lat_us:.4f} us on the "
+          f"card; pass rounds K19 (1, {N}) inverse {inv_rounds}, forward "
+          f"{fwd_rounds} (and a row of ({L}, {N})), K20 {h_rounds}: chain "
+          f"floors {inv_rounds * lat_us / 1e3:.4f} / "
+          f"{fwd_rounds * lat_us / 1e3:.4f} / {h_rounds * lat_us / 1e3:.4f}"
+          f" ms")
     print(f"g1 fft kernels: K19 ({L}, {N}) forward {fwd_ms:.6f} ms (plain "
           f"{plain_fwd:.3f} ms), (1, {N}) inverse {inv_ms:.6f} ms (plain "
           f"{plain_inv:.3f} ms, round trip to the setup points), (1, {N}) "
@@ -2597,7 +2933,11 @@ def check_g1fft_kernels(dev, record, int32_ops_per_s):
           f"{plain18:.3f} ms); K20 ({L}, {N}) {k20_ms:.6f} ms (plain "
           f"{plain20:.3f} ms); products: K19 {fwd_products} / "
           f"{inv_products} / {one_products}, K20 {h_products}; all equal "
-          f"to the plain versions")
+          f"to the plain versions (K19's on the CPU in worker processes, "
+          f"{wait:.3f} s waited for them; K20's on the card)")
+    cpu_note = ("the plain version on the CPU, in worker processes at a low "
+                "priority beside nvcc and the card's phases; the setup's in "
+                f"blocks of {G1_PLAIN_ROWS} rows, its ms their sum")
     record("g1_fft", "consensus_specs_tpu_torch/csrc/g1_fft.cu",
            "consensus_specs_tpu/ops/bls_batch/g1fft_jax.py:161", err,
            inv_ms, plain_inv, inv_products * to_ms, "operations",
@@ -2608,6 +2948,11 @@ def check_g1fft_kernels(dev, record, int32_ops_per_s):
            setup_ms=fwd_ms, setup_plain_ms=plain_fwd,
            setup_bound_ms=fwd_products * to_ms,
            setup_shape=f"({L}, {N}) forward, the setup tables (once)",
+           plain_note=cpu_note,
+           product_latency_us=lat_us, chain_rounds=inv_rounds,
+           chain_floor_ms=inv_rounds * lat_us / 1e3,
+           forward_chain_rounds=fwd_rounds,
+           forward_chain_floor_ms=fwd_rounds * lat_us / 1e3,
            replaces_also=["consensus_specs_tpu/ops/bls_batch/"
                           "g1fft_jax.py:130",
                           "consensus_specs_tpu/ops/bls_batch/"
@@ -2617,6 +2962,8 @@ def check_g1fft_kernels(dev, record, int32_ops_per_s):
            k20_ms, plain20, h_products * to_ms, "operations",
            montgomery_products=h_products,
            shape=f"({L} residues, {N} positions), the dense blob's digits",
+           product_latency_us=lat_us, chain_rounds=h_rounds,
+           chain_floor_ms=h_rounds * lat_us / 1e3,
            replaces_also=["consensus_specs_tpu/ops/bls_batch/"
                           "g1fft_jax.py:314"])
     return {"fr_fft_64x128": (k18_ms, plain18)}
@@ -3771,6 +4118,20 @@ def main() -> int:
     dev = torch.device("cuda:0")
     card = smi("name,power.limit")
     print(f"card: {card}")
+    # the G1 FFT phase's plain K19 (and the edges' K20) run on the CPU, in
+    # worker processes below nvcc and the card's phases
+    import multiprocessing
+
+    from consensus_specs_tpu_torch.das import compute as DC
+
+    tasks = {("rows", r): (g1fft_plain_rows, (r,))
+             for r in range(0, DC.L, G1_PLAIN_ROWS)}
+    tasks["inverse"] = (g1fft_plain_inverse, ())
+    tasks["edge"] = (g1fft_edge_plain, ())
+    EDGE["pool"] = multiprocessing.get_context("spawn").Pool(
+        len(tasks), initializer=_plain_worker_init)
+    for key, (fn, args) in tasks.items():
+        EDGE[key] = EDGE["pool"].apply_async(fn, args)
     max_clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     int32_ops_per_s = n_sm * INT32_LANES_PER_SM * max_clock_hz
@@ -4142,4 +4503,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        if "pool" in EDGE:
+            EDGE["pool"].terminate()
+            EDGE["pool"].join()
+    sys.exit(rc)

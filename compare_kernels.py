@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Time the BLS kernels of config #2's batch, K16, and the epoch step's
-kernels on one CUDA card for one checkout of the port, so that two commits
-compare on one card:
+"""Time the BLS kernels of config #2's batch, K16, the epoch step's
+kernels and the PeerDAS producer's G1 kernels on one CUDA card for one
+checkout of the port, so that two commits compare on one card:
 
     python3 compare_kernels.py [--root DIR] [--label NAME] [--group G]
 
 It imports `consensus_specs_tpu_torch` from DIR (default: this script's
-directory), builds that checkout's libraries of the group (`bls`, `epoch`
-or `all`, the default) with its own `_build`, and times, by CUDA events
+directory), builds that checkout's libraries of the group (`bls`, `epoch`,
+`g1fft` or `all`, the default) with its own `_build`, and times, by CUDA events
 around each call with a sleep kernel ahead (`chip_smoke.py`'s `device_ms`,
 whose helpers and inputs it uses), in the `bls` group:
 
@@ -19,6 +19,8 @@ whose helpers and inputs it uses), in the `bls` group:
   on the sharded batch's 4 partials;
 - K16 on `chip_smoke.py`'s config #5 blob 0 at W = 4096, at its
   challenge (the commitment by K14 on the card);
+- K7 (`fq12_mul`) and K15 (an inversion) on 1024 random elements, and
+  K13 and K14 on `chip_smoke.py`'s MSM probe at its MSM_SIZES;
 
 and in the `epoch` group, on `chip_smoke.py`'s 2**20-validator registry
 and `bench.py`'s 1% dirty set, through functions both checkouts have:
@@ -31,7 +33,24 @@ and `bench.py`'s 1% dirty set, through functions both checkouts have:
   all-reduced and the shares reduce-scattered as the sharded sweep does;
 - the incremental step (`IncrementalEpochStep`): its device busy time
   (torch.profiler, the sum over its device operations) and its wall
-  (host clock, median of 9).
+  (host clock, median of 9);
+
+and in the `g1fft` group, on `chip_smoke.py`'s inputs:
+
+- K19 at (64, 128) forward on the trusted setup's residue vectors (the
+  FK20 setup tables), at (1, 128) forward on the first of them, and at
+  (1, 128) inverse on the first table row;
+- K20 at (64 residues, 128 positions) on those tables and the window
+  digits of `convert.kzg_blobs(1)[0]`'s circulant rows, and K18 on
+  those rows;
+- one `_fk20_proofs_device` call on that blob (its host compression
+  included: CUDA events around a call that syncs);
+- where the checkout has it (`kernels.g1_product_chain`), one pass
+  round's product latency, in us.
+
+Its K19 and K20 digests cover the coordinates of the finite points and
+the Z = 0 flags (a point at infinity's X and Y are read by nobody); the
+producer's, its proof bytes.
 
 It prints, last, one JSON line: the label, the card's name and power
 limit, each kernel's mean device ms, and a SHA-256 of each kernel's
@@ -57,10 +76,13 @@ REPS = 5
 SHARDS = 4
 SOURCES = {"bls": ("bls_rlc", "bls_h2c", "bls_shard", "bls_pairing",
                    "bls_msm", "fr_batch"),
-           "epoch": ("epoch_sweep", "sha256", "records_root", "incremental")}
+           "epoch": ("epoch_sweep", "sha256", "records_root", "incremental"),
+           "g1fft": ("g1_fft", "fr_batch")}
 SHARDS_K24 = 4
 # a call's set-up, run before it outside the timed events
 SETUPS = {}
+# a call's digest, where it is not `_digest` of its outputs
+DIGESTS = {}
 
 
 def _helpers():
@@ -161,11 +183,69 @@ def epoch_calls(cs, dev) -> tuple:
     return calls, after
 
 
+def _points_digest(p) -> str:
+    """The Z = 0 flags and the coordinates of the finite points."""
+    import torch
+
+    inf = (p[2] == 0).all(-1, keepdim=True)
+    return _digest(inf, *(torch.where(inf, torch.zeros_like(c), c)
+                          for c in p))
+
+
+def g1fft_calls(cs, dev) -> dict:
+    """The g1fft group's calls {name: fn}: K19 at the setup shape and at
+    the producer's two (1, 128) transforms, K20 on the setup tables, one
+    FK20 producer call."""
+    import numpy as np
+    import torch
+
+    from consensus_specs_tpu_torch import convert as CV
+    from consensus_specs_tpu_torch.das import ciphersuite as dcs
+    from consensus_specs_tpu_torch.das import compute as DC
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+    from consensus_specs_tpu_torch.ops.bls_batch import g1fft as G
+
+    L, KK, N = DC.L, DC.K, DC.N_EXT
+    limbs = [G.points_to_limbs([dcs.setup_g1_point(c + L * v)
+                                for v in range(KK)], pad_to=N)
+             for c in range(L)]
+    perm = torch.tensor(G._bitrev_perm(N), device=dev)
+    fwd = tuple(torch.from_numpy(np.stack([lb[i] for lb in limbs])).to(dev)
+                [:, perm].contiguous() for i in range(3))
+    tables = G.fft(*fwd)
+    one = tuple(c[:1].contiguous() for c in fwd)
+    inv = tuple(c[:1][:, perm].contiguous() for c in tables)
+    blob = CV.kzg_blobs(1)[0]
+    coeffs = DC.poly_coefficients(blob, device=dev)
+    f = DC._coeff_limbs(coeffs, dev)
+    rows = torch.cat([f, torch.zeros_like(f[:1])])[
+        DC._fk20_row_index(L, KK, N, DC.M, dev)]
+    sfft = DC.domain_fft(rows)
+    raw_one = torch.from_numpy(FB.FR.int_to_limbs(1)).to(dev)
+    digits = G.limb_digits(FB.field_op(
+        "mul", sfft, raw_one.expand(sfft.shape).contiguous()))
+    calls = {
+        "g1_fft_64x128_forward": lambda: G.fft(*fwd),
+        "g1_fft_1x128_forward": lambda: G.fft(*one),
+        "g1_fft_1x128_inverse": lambda: G.fft(*inv, inverse=True),
+        "fk20_hext_64x128": lambda: G.hext(*tables, digits),
+    }
+    for name in calls:
+        DIGESTS[name] = _points_digest
+    calls["fr_fft_64x128"] = lambda: DC.domain_fft(rows)
+    calls["fk20_proofs_blob0"] = lambda: DC._fk20_proofs_device(coeffs,
+                                                                device=dev)
+    DIGESTS["fk20_proofs_blob0"] = lambda proofs: hashlib.sha256(
+        b"".join(proofs)).hexdigest()[:16]
+    return calls
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--label", default="")
-    ap.add_argument("--group", choices=("bls", "epoch", "all"), default="all")
+    ap.add_argument("--group", choices=("bls", "epoch", "g1fft", "all"),
+                    default="all")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -180,7 +260,8 @@ def main() -> int:
 
     if root not in Path(_build.__file__).resolve().parents:
         raise RuntimeError(f"imported {_build.__file__}, not from {root}")
-    groups = ("bls", "epoch") if args.group == "all" else (args.group,)
+    groups = (("bls", "epoch", "g1fft") if args.group == "all"
+              else (args.group,))
     t0 = time.perf_counter()
     _build.build(tuple(n for g in groups for n in SOURCES[g]))
     build_s = time.perf_counter() - t0
@@ -191,14 +272,21 @@ def main() -> int:
     if "epoch" in groups:
         epoch, after = epoch_calls(cs, dev)
         calls.update(epoch)
+    if "g1fft" in groups:
+        calls.update(g1fft_calls(cs, dev))
 
     ms, digests = {}, {}
     for name, fn in calls.items():
         setup = SETUPS.get(name)
         if setup:
             setup()
-        digests[name] = _digest(fn())
+        digests[name] = DIGESTS.get(name, _digest)(fn())
         ms[name] = cs.device_ms(fn, REPS, setup)
+    if "g1fft" in groups:
+        from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+
+        if hasattr(K, "g1_product_chain"):
+            ms["g1_product_latency_us"] = cs.g1_product_latency_us(dev)
     if after:
         digests.update(after(ms))
     batch = None
@@ -208,7 +296,8 @@ def main() -> int:
     card = cs.smi("name,power.limit")
     print(f"{args.label or root.name}: {card}; build {build_s:.1f} s "
           f"({', '.join(groups)}); "
-          + ", ".join(f"{k} {v:.6f} ms" for k, v in ms.items())
+          + ", ".join(f"{k} {v:.6f}" + ("" if k.endswith("_us") else " ms")
+                      for k, v in ms.items())
           + ("" if batch is None
              else f"; config #2 device-hashing batch {batch:.6f} ms"))
     print(json.dumps({"label": args.label, "root": str(root), "card": card,
@@ -232,6 +321,11 @@ def bls_calls(cs, dev) -> dict:
     from consensus_specs_tpu_torch.ops.bls.hash_to_curve import (DST_G2,
                                                                  hash_to_g2)
     from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+
+    import numpy as np
+
+    from consensus_specs_tpu_torch.ops.bls.fields import Q
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as Fq
 
     tasks, _ = cs.bls_tasks(cs.BLS_TASKS, cs.BLS_COMMITTEE, cs.BLS_SEED_BASE)
 
@@ -283,6 +377,20 @@ def bls_calls(cs, dev) -> dict:
     args16 = tuple(torch.from_numpy(a).to(dev) for a in FB.barycentric_inputs(
         [int(v) for v in P.blob_to_polynomial(blob)], roots, int(z)))
     calls["fr_barycentric"] = lambda: FB.barycentric(*args16)
+
+    # the field layer and the MSMs: K7 and K15 on `chip_smoke.py`'s 1024
+    # random elements, K13 and K14 on its MSM probe
+    r = random.Random(cs.SEED + 3)
+    fq12 = [torch.from_numpy(np.stack(
+        [Fq.to_mont(r.randrange(Q)) for _ in range(1024 * 12)]).reshape(
+            1024, 2, 3, 2, 33)).to(dev) for _ in range(2)]
+    calls["bls_field_ops_fq12_mul"] = lambda: K.field_op("fq12_mul", *fq12)
+    fr = torch.from_numpy(FB.FR.to_mont_batch(
+        [r.randrange(FB.R_MODULUS) for _ in range(1024)])).to(dev)
+    calls["fr_field_ops_inv"] = lambda: FB.field_op("inv", fr)
+    for n in cs.MSM_SIZES:
+        name, *_, kernel, _ = cs.msm_calls(n, dev)
+        calls[f"{name}_{n}"] = kernel
     return calls
 
 

@@ -48,7 +48,8 @@ namespace {
 
 enum FieldOp {
   OP_FQ_MUL = 0, OP_FQ_INV, OP_FQ_CANON, OP_FQ2_MUL, OP_FQ2_INV,
-  OP_FQ12_MUL, OP_FQ12_SQR, OP_FQ12_INV, OP_FQ12_FROBENIUS
+  OP_FQ12_MUL, OP_FQ12_SQR, OP_FQ12_INV, OP_FQ12_FROBENIUS, OP_FQ_ADD,
+  OP_FQ_SUB
 };
 
 // --- K7 --------------------------------------------------------------------
@@ -59,14 +60,18 @@ bls_field_ops_kernel(int op, int k, const int32_t* __restrict__ a,
                      int64_t n) {
   int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
-  if (op <= OP_FQ_CANON) {
+  if (op <= OP_FQ_CANON || op >= OP_FQ_ADD) {
     Fp x, y;
     load_fp(x, a + e * BLS_NL);
+    if (op == OP_FQ_MUL || op >= OP_FQ_ADD) load_fp(y, b + e * BLS_NL);
     if (op == OP_FQ_MUL) {
-      load_fp(y, b + e * BLS_NL);
       fp_mul(x, x, y);
     } else if (op == OP_FQ_INV) {
       fp_inv(x, x);
+    } else if (op == OP_FQ_ADD) {
+      fp_add(x, x, y);
+    } else if (op == OP_FQ_SUB) {
+      fp_sub(x, x, y);
     }
     store_fp(out + e * BLS_NL, x);
   } else if (op <= OP_FQ2_INV) {

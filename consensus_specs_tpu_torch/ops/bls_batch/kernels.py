@@ -41,7 +41,7 @@ FIELD_OPS = {
     "fq_mul": (0, 1, 2), "fq_inv": (1, 1, 1), "fq_canon": (2, 1, 1),
     "fq2_mul": (3, 2, 2), "fq2_inv": (4, 2, 1), "fq12_mul": (5, 4, 2),
     "fq12_sqr": (6, 4, 1), "fq12_inv": (7, 4, 1),
-    "fq12_frobenius": (8, 4, 1),
+    "fq12_frobenius": (8, 4, 1), "fq_add": (9, 1, 2), "fq_sub": (10, 1, 2),
 }
 
 
@@ -180,6 +180,7 @@ _SIGNATURES = {
         "g1_fft_launch": [_p] * 3 + [_i32] * 3 + [_p] * 4 + [_i32]
         + [_p] * 3,
         "fk20_hext_launch": [_p] * 4 + [_i32] * 2 + [_p] * 2,
+        "g1_product_chain_launch": [_p, _i32, _p, _p],
     },
 }
 # scratch-size functions: name -> argument count (all int)
@@ -296,6 +297,8 @@ _PLAIN_OPS = {
     "fq12_sqr": lambda a, b, k: tw.fq12_sqr(a),
     "fq12_inv": lambda a, b, k: tw.fq12_inv(a),
     "fq12_frobenius": lambda a, b, k: tw.fq12_frobenius(a, k),
+    "fq_add": lambda a, b, k: _fq.fq_add(a, b),
+    "fq_sub": lambda a, b, k: _fq.fq_sub(a, b),
 }
 
 
@@ -659,3 +662,18 @@ def fk20_hext_kernel(x, y, z, digits):
         width, out.data_ptr(), _build.stream_ptr(x)), "fk20_hext")
     _build.launches["fk20_hext"] += 1
     return tuple(out)
+
+
+def g1_product_chain(a: torch.Tensor, n: int) -> torch.Tensor:
+    """A probe, on no path: a^(2^n) (a: (33,) limbs) by n dependent
+    products through K19's and K20's one product call (an operand pick,
+    the product, its store to shared memory) on one thread; its time over
+    n is a pass round's product latency.  Not counted in `launches`."""
+    _limbs("g1_product_chain", a, (33,))
+    lib = lib_for(a.device, "g1_fft")
+    out = torch.empty(33, dtype=torch.int32, device=a.device)
+    _build.require_cuda("g1_product_chain", a, out)
+    _build.check(lib.g1_product_chain_launch(
+        a.data_ptr(), int(n), out.data_ptr(), _build.stream_ptr(a)),
+        "g1_product_chain")
+    return out

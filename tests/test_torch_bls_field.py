@@ -303,6 +303,7 @@ def test_field_op_plain_is_canonical_jax(op):
            "fq2_mul": Jt.fq2_mul, "fq2_inv": lambda x, y: Jt.fq2_inv(x),
            "fq12_mul": Jt.fq12_mul, "fq12_sqr": lambda x, y: Jt.fq12_sqr(x),
            "fq12_inv": lambda x, y: Jt.fq12_inv(x),
-           "fq12_frobenius": lambda x, y: Jt.fq12_frobenius(x, 2)}[op]
+           "fq12_frobenius": lambda x, y: Jt.fq12_frobenius(x, 2),
+           "fq_add": Jf.fq_add, "fq_sub": Jf.fq_sub}[op]
     got = K.field_op(op, torch.from_numpy(a), torch.from_numpy(b), k=2)
     _same(got, _jax(f"k7{op}", lambda x, y: Jf.fq_canon(ref(x, y)), a, b))

@@ -287,7 +287,8 @@ def _bls_rand(dev, shape, seed):
 @pytest.mark.parametrize("op,k", [
     ("fq_mul", 0), ("fq_inv", 0), ("fq_canon", 0), ("fq2_mul", 0),
     ("fq2_inv", 0), ("fq12_mul", 0), ("fq12_sqr", 0), ("fq12_inv", 0),
-    ("fq12_frobenius", 1), ("fq12_frobenius", 2), ("fq12_frobenius", 6)])
+    ("fq12_frobenius", 1), ("fq12_frobenius", 2), ("fq12_frobenius", 6),
+    ("fq_add", 0), ("fq_sub", 0)])
 def test_bls_field_ops_kernel(dev, op, k):
     from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
 
@@ -303,6 +304,77 @@ def test_bls_field_ops_kernel(dev, op, k):
     torch.cuda.synchronize()
     assert _build.launches["bls_field_ops"] == before + 1
     assert torch.equal(got, K.field_op(op, a, b, k, plain=True))
+
+
+
+def _edge_word_pairs(m: int, R: int, seed: int) -> list:
+    """(a, b) pairs of a field's kernel words (x R mod m) on the edges of
+    the carry chains and the product: a + b = m, m - 1, m + 1 and
+    2m - 2; a < b, a = b, 0 and m - 1; the words of -1 twice, whose
+    product is (m - 1)^2 as field elements; and random pairs."""
+    import random
+
+    r = random.Random(seed)
+    h, neg_one = m // 2, m - R % m
+    pairs = [(1, m - 1), (h, m - h), (m - 2, 1), (m - 1, 2), (m - 1, m - 1),
+             (0, 0), (1, 2), (5, 5), (h, h + 1), (h + 1, h), (0, m - 1),
+             (m - 1, 0), (0, 1), (neg_one, neg_one)]
+    return pairs + [(r.randrange(m), r.randrange(m)) for _ in range(18)]
+
+
+@pytest.mark.parametrize("field", ["fp", "fr"])
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+def test_field_chains_against_python_ints(dev, field, op):
+    """`csrc/mont.cuh`'s addition and subtraction (one PTX carry chain
+    each) and column product, through K7 (Fp) and K15 (Fr), at the
+    words of `_edge_word_pairs`, against Python ints."""
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+    from consensus_specs_tpu_torch.ops.bls.fields import Q
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+
+    if field == "fp":
+        m, R = Q, K.R_KERNEL
+    else:
+        m, R = FB.R_MODULUS, 1 << 256
+    inv_r = pow(R, -1, m)
+    pairs = _edge_word_pairs(m, R, 7)
+    xs = [a * inv_r % m for a, _ in pairs]
+    ys = [b * inv_r % m for _, b in pairs]
+    if field == "fp":
+        a, b = (torch.from_numpy(np.stack([F.to_mont(v) for v in vs])).to(dev)
+                for vs in (xs, ys))
+        got = [F.from_mont(row)
+               for row in K.field_op(f"fq_{op}", a, b).cpu().numpy()]
+    else:
+        a, b = (torch.from_numpy(FB.FR.to_mont_batch(vs)).to(dev)
+                for vs in (xs, ys))
+        got = FB.from_limbs(FB.field_op(op, a, b))
+    want = {"add": [(x + y) % m for x, y in zip(xs, ys)],
+            "sub": [(x - y) % m for x, y in zip(xs, ys)],
+            "mul": [x * y % m for x, y in zip(xs, ys)]}[op]
+    assert got == want
+
+
+def test_g1_product_chain_against_python_ints(dev):
+    """The g1_fft library's one product call (K19's and K20's), a^(2^n),
+    at -1, at the words m - 1 and 1, at 0 and at random values, against
+    Python ints."""
+    import random
+
+    from consensus_specs_tpu_torch.ops.bls.fields import Q
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+
+    inv_r = pow(K.R_KERNEL, -1, Q)
+    r = random.Random(8)
+    xs = [Q - 1, (Q - 1) * inv_r % Q, inv_r, 0, 1]
+    xs += [r.randrange(Q) for _ in range(3)]
+    for x in xs:
+        for n in (1, 3):
+            got = K.g1_product_chain(torch.from_numpy(F.to_mont(x)).to(dev),
+                                     n)
+            assert F.from_mont(got.cpu().numpy()) == pow(x, 2**n, Q), (x, n)
 
 
 def _bls_tasks(n, forge=None):
@@ -725,16 +797,28 @@ def _same_points(got, plain):
 
 
 @pytest.mark.parametrize("n,batch,inverse", [(8, 2, False), (8, 2, True),
-                                             (16, 3, True)])
+                                             (16, 3, True), (8, 1, False),
+                                             (16, 1, False), (16, 3, False),
+                                             (8, 3, True)])
 def test_g1_fft_kernel(dev, n, batch, inverse):
+    """K19 against its plain version, the naive evaluation and the round
+    trip (held against the plain version too: at n = 8 its last round
+    meets u - t = 2u, the addition's doubling branch), on rows ending in
+    two infinities; row 1 has two masked lanes (Z = 0 under a point's X
+    and Y) and row 2 is masked whole."""
     from consensus_specs_tpu_torch.ops.bls import curve as Cv
     from consensus_specs_tpu_torch.ops.bls_batch import g1fft as G
 
-    rows = []
+    rows, limbs = [], []
     for b in range(batch):
         row = [Cv.g1.mul(Cv.G1_GEN, 3 + 7 * b + i) for i in range(n - 2)]
-        rows.append(row + [Cv.g1.infinity()] * 2)
-    limbs = [G.points_to_limbs(r) for r in rows]
+        row += [Cv.g1.infinity()] * 2
+        lb = G.points_to_limbs(row)
+        for k in {1: (1, n - 3), 2: range(n)}.get(b, ()):
+            lb[2][k] = 0
+            row[k] = Cv.g1.infinity()
+        rows.append(row)
+        limbs.append(lb)
     x, y, z = (torch.from_numpy(np.stack([lb[i] for lb in limbs])).to(dev)
                for i in range(3))
     perm = torch.tensor(G._bitrev_perm(n), device=dev)
@@ -757,8 +841,11 @@ def test_g1_fft_kernel(dev, n, batch, inverse):
                 want = Cv.g1.add(want, Cv.g1.mul(
                     pt, dom[(i * j) % n] * inv_n % G.R_MODULUS))
             assert Cv.g1.eq_points(out[n * b + i], want), (b, i)
-    back = G.limbs_to_oracle_list(G.g1_fft_device(
-        *got, inverse=not inverse, device=dev))
+    back_args = tuple(c[:, perm].contiguous() for c in got)
+    back_k = G.fft(*back_args, inverse=not inverse)
+    assert _same_points(back_k, G.fft(*back_args, inverse=not inverse,
+                                      plain=True))
+    back = G.limbs_to_oracle_list(back_k)
     for b, row in enumerate(rows):
         for i, pt in enumerate(row):
             assert Cv.g1.eq_points(back[n * b + i], pt)
@@ -781,9 +868,19 @@ def test_fk20_hext_kernel(dev):
     scalars = [[rng.randrange(G.R_MODULUS) for _ in range(width)]
                for _ in range(n_res)]
     scalars[1][2] = 0
+    # a point added twice into the same buckets (the doubling branch), a
+    # point beside its negative with equal scalars, a position of zero
+    # scalars, an infinity under a point's X and Y (masked, as the
+    # producer masks lanes)
+    pts[5][6], scalars[5][6] = pts[2][6], scalars[2][6]
+    pts[6][7], scalars[6][7] = Cv.g1.neg(pts[1][7]), scalars[1][7]
+    for row in scalars:
+        row[9] = 0
     x, y, z = (torch.from_numpy(np.stack([[F.to_mont(p[i]) for p in row]
                                           for row in pts])).to(dev)
                for i in range(3))
+    z[4, 10] = 0
+    pts[4][10] = Cv.g1.infinity()
     digits = torch.from_numpy(scalars_to_digits(
         [s for row in scalars for s in row], 255, 4).reshape(
             n_res, width, 64)).to(dev)
