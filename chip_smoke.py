@@ -58,8 +58,9 @@ and PyTorch built for CUDA.  The script:
    `AggregateVerify`, accept and reject, on the card;
 9. the G1 MSM on `bench_bls.py`'s probe at 16, 512 (Pippenger, K13) and
    4096 points (double-and-add, K14), each kernel held against its plain
-   version and the result against the oracle's `g1.msm`, and the facade's
-   `multi_exp` routing at 15 and 16 points;
+   version and the result against the oracle's `g1.msm`, each chain's
+   floor (its pass rounds times a round's product latency), and the
+   facade's `multi_exp` routing at 15 and 16 points;
 10. slice 5, the scalar field: K15 (`fr_field_ops`) canonically equal to
    the plain Fr ops on 1024 random elements and 0, 1, r - 1;
 11. config #5, Deneb `verify_blob_kzg_proof_batch` over `bench.py`
@@ -130,7 +131,10 @@ and PyTorch built for CUDA.  The script:
    per-lane Miller body at its edge shapes, each against its plain
    version: K9 at 1, 2, 31, 33 and 129 lanes with dead lanes of each
    kind and at 4 lanes with every signature at infinity, K25 on one
-   lane, K26 at D = 1 and on two equal partials (D = 2); then
+   lane, K26 at D = 1 and on two equal partials (D = 2); K13 at c = 4,
+   6, 8, K14 at 1024 and 4096 lanes and K27 at D = 1-4 on their edge
+   inputs (`msm_edge_inputs`; K13's plain versions on the CPU by a
+   worker process), each against its plain version; then
    K24 at the main path's shape (2**20 validators over 4 shards), each
    phase and the whole sweep against the plain sharded sweep; the full
    step at 2**20
@@ -200,6 +204,9 @@ BLS_FIELD_N = 1024
 SYNC_COMMITTEE = 512
 SYNC_SEED_BASE = 2000
 MSM_SIZES = (16, 512, 4096)
+# K13's edge shapes (c, n points) and K14's (lanes): `msm_edge_inputs`
+MSM_EDGE_PIP = ((4, 16), (6, 64), (8, 64), (4, 8))
+MSM_EDGE_DA = (1024, 4096)
 # slice 5: config #5 (bench.py:1112 worker_kzg's 6 blobs), the PeerDAS
 # 128 x 8 sampling matrix (bench.py:626 worker_das, seed 20250), a
 # 16-cell sub-batch of it with cell 5 tampered, and K15's elements
@@ -1218,6 +1225,12 @@ def precompute_plain(dev) -> None:
     for n in MSM_SIZES:
         *_, t, _, plain = msm_calls(n, dev)
         PLAIN[f"msm_{n}"] = (t,) + timed(plain)
+    for key, val in msm_edge_inputs().items():
+        if key[0] == "double_add":
+            t = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                      for a in val)
+            PLAIN[f"msm_edge_{key[1]}"] = (t,) + timed(
+                lambda: B.msm_double_add_plain(*t))
 
 
 def bls_path(dev, record, int32_ops_per_s):
@@ -1646,6 +1659,75 @@ def double_add_products(bits) -> int:
             + (bits.shape[0] - 1) * 16)
 
 
+def msm_window_groups(c: int) -> int:
+    """K13's groups a window block (`bls_msm.cu` `window_groups`): a group
+    a bucket, in whole warps of 8, at most 64."""
+    return min(64, max(1, -(-((1 << c) - 1) // 8)) * 8)
+
+
+def pippenger_chain_rounds(digits, c: int) -> int:
+    """K13's chain in pass rounds for these digits (B, W) (a doubling 3,
+    an addition 5, each one product deep): the longest window's bucket
+    pass (a warp's groups step through their points together, 5 a step
+    where one of them adds into a bucket that holds a point) and its
+    suffix sum (5 a step where running or acc, a step behind, adds two
+    finite points), then the combine (c doublings and an addition a
+    window once the sum is finite)."""
+    n_groups = msm_window_groups(c)
+    nb = 1 << c
+    worst = 0
+    finite = []
+    for w in range(digits.shape[1]):
+        queues = [[] for _ in range(n_groups)]
+        seen = set()
+        for d in digits[:, w].tolist():
+            if d:
+                queues[(d - 1) % n_groups].append(d in seen)
+                seen.add(d)
+        bucket = 0
+        for g0 in range(0, n_groups, 8):
+            warp = queues[g0:g0 + 8]
+            steps = max(len(q) for q in warp)
+            bucket = max(bucket, sum(
+                5 if any(s < len(q) and q[s] for q in warp) else 0
+                for s in range(steps)))
+        suffix, run, acc, prev = 0, False, False, False
+        for s in range(nb):
+            k = nb - 1 - s
+            full = (k >= 1 and run and k in seen) or (s >= 1 and acc and prev)
+            suffix += 5 if full else 0
+            acc = acc or (s >= 1 and prev)
+            prev = run = run or (k >= 1 and k in seen)
+        worst = max(worst, bucket + suffix)
+        finite.append(bool(seen))
+    comb, res = 0, False
+    for f in finite:
+        comb += (3 * c if res else 0) + (5 if res and f else 0)
+        res = res or f
+    return worst + comb
+
+
+def double_add_chain_rounds(bits, mask=None) -> int:
+    """K14's chain in pass rounds for these lanes' bits (B, nbits): the
+    longest warp's (8 lanes; after the first leading set bit among its
+    live lanes, a doubling a bit and an addition where a lane past its
+    leading bit has the bit set), then 5 a level of the tree."""
+    live = np.ones(len(bits), bool) if mask is None else np.asarray(mask)
+    worst = 0
+    for w0 in range(0, len(bits), 8):
+        rows = bits[w0:w0 + 8][live[w0:w0 + 8]]
+        leads = [int(np.flatnonzero(r)[0]) for r in rows if r.any()]
+        if not leads:
+            continue
+        rounds = 0
+        for j in range(min(leads) + 1, bits.shape[1]):
+            rounds += 3 + (5 if any(j > ld and row[j] for ld, row in
+                                    zip(leads, rows[rows.any(1)]))
+                           else 0)
+        worst = max(worst, rounds)
+    return worst + 5 * (len(bits).bit_length() - 1)
+
+
 def sync_task():
     """BASELINE config #3, `bench_bls.py:67 _build_tasks(1, 512,
     seed_base=2000)`'s recipe (copied in `bls_tasks`), and the wire
@@ -1881,29 +1963,41 @@ def msm_path(dev, record, int32_ops_per_s):
         if algo == "pippenger":
             live = arrays[2][:n]
             products = pippenger_products(live, c)
+            rounds = pippenger_chain_rounds(arrays[2], c)
         else:
             products = double_add_products(arrays[2][:n])
+            rounds = double_add_chain_rounds(arrays[2], arrays[3])
         print(f"msm n={n}: {algo} B={arrays[0].shape[0]}"
               + (f" c={c}" if c else "") + f" call_ms={wall:.4f} "
               f"kernel_ms={kms:.6f} plain_ms={plain_ms:.3f} "
-              f"products={products}; equals its plain version and the "
-              f"oracle's g1.msm (host oracle {oracle_s * 1e3:.1f} ms)")
+              f"products={products} chain_rounds={rounds}; equals its "
+              f"plain version and the oracle's g1.msm (host oracle "
+              f"{oracle_s * 1e3:.1f} ms)")
         errs.setdefault(name, 0)
         errs[name] = max(errs[name], err)
-        times[n] = (name, kms, plain_ms, products, arrays[0].shape[0], c)
+        times[n] = (name, kms, plain_ms, products, arrays[0].shape[0], c,
+                    rounds)
         notes[n] = plain_note(f"msm_{n}")
+
+    # the chains' floor: their pass rounds times one product's latency
+    lat_us = g1_product_latency_us(dev)
+    print(f"msm chains: a pass round's product {lat_us:.4f} us; floors "
+          + ", ".join(f"n={n} {t[6]} rounds {t[6] * lat_us / 1e3:.4f} ms"
+                      for n, t in times.items()))
 
     for name, n, src in (("msm_pippenger", n_pip, "consensus_specs_tpu/ops/"
                           "bls_batch/curve_jax.py:188"),
                          ("msm_double_add", n_da, "consensus_specs_tpu/ops/"
                           "bls_batch/__init__.py:347")):
-        _, kms, plain_ms, products, b, c = times[n]
-        extra = {}
+        _, kms, plain_ms, products, b, c, rounds = times[n]
+        extra = dict(product_latency_us=lat_us, chain_rounds=rounds,
+                     chain_floor_ms=rounds * lat_us / 1e3)
         if name == "msm_pippenger":
-            _, k16, p16, prod16, b16, c16 = times[n_thr]
-            extra = dict(threshold_ms=k16, threshold_plain_ms=p16,
+            _, k16, p16, prod16, b16, c16, r16 = times[n_thr]
+            extra.update(threshold_ms=k16, threshold_plain_ms=p16,
                          threshold_bound_ms=prod16 * OPS_PER_MONT
                          / int32_ops_per_s * 1e3,
+                         threshold_chain_floor_ms=r16 * lat_us / 1e3,
                          threshold_shape=f"n={n_thr}, B={b16}, c={c16}",
                          replaces_also=["consensus_specs_tpu/ops/bls_batch/"
                                         "__init__.py:367"])
@@ -2657,6 +2751,152 @@ def g1fft_edge_plain() -> dict:
             out[("round_trip", 8)] = tuple(F.fq_canon(c).numpy()
                                            for c in back)
     return out
+
+
+def msm_edge_inputs() -> dict:
+    """K13's and K14's edge inputs, numpy, from the MSM probe's points
+    (`msm_probe`).  K13 at each (c, n) of MSM_EDGE_PIP, (x, y, digits,
+    points): point 1 repeats point 0, point 2 is its negative, point 4
+    the negative of point 3; window 0 all zero digits; every point in the
+    top bucket of window 1 (one bucket's chain n long, through P + P and
+    Q - Q); points 0-2 alone in bucket 3 of window 2 (P then P doubles,
+    then -P); points 3-5 in bucket 5 of window 3 (Q then -Q gives
+    infinity, point 5 brings it back); the last two points zero digits;
+    at n = 8, four pairs P, -P with equal digits (the sum at infinity).
+    K14 at each n of MSM_EDGE_DA, (x, y, bits, mask): the probe's
+    scalars but the G1 point (0, 2) of order 3 with scalars 3 (T = -Q
+    gives infinity) and 5 (T = Q doubles), scalars 1, r - 1, 2^254 and a
+    zero scalar on a live lane, lanes 2 and 2 + n/2 equal and 3 and 3 +
+    n/2 opposite (the tree's first level meets P + P and P - P), masked
+    lanes in the middle and at the end."""
+    import random
+
+    from consensus_specs_tpu_torch.ops.bls import curve as Cv
+    from consensus_specs_tpu_torch.ops.bls_batch import curve as BC
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+
+    pts, ks = msm_probe()
+    out = {}
+    for c, n in MSM_EDGE_PIP:
+        r = random.Random(SEED + 60 + c)
+        nb, W = 1 << c, -(-255 // c)
+        if n == 8:
+            p = [Cv.g1.neg(pts[i // 2]) if i % 2 else pts[i // 2]
+                 for i in range(n)]
+            digits = np.repeat(BC.scalars_to_digits(ks[:n // 2], 255, c), 2,
+                               0)
+        else:
+            p = list(pts[:n])
+            p[1], p[2], p[4] = p[0], Cv.g1.neg(p[0]), Cv.g1.neg(p[3])
+            digits = np.array([[r.randrange(nb) for _ in range(W)]
+                               for _ in range(n)], np.int32)
+            digits[:, 0] = 0
+            digits[:, 1] = nb - 1
+            digits[3:, 2][digits[3:, 2] == 3] = 2
+            digits[:3, 2] = 3
+            digits[:3, 3][digits[:3, 3] == 5] = 6
+            digits[3:6, 3] = 5
+            digits[-2:] = 0
+        x, y = BC.g1_affine_to_limbs(p)
+        out[("pippenger", c, n)] = (x, y, digits, p)
+    for n in MSM_EDGE_DA:
+        h = n // 2
+        k = list(ks[:n])
+        k[:6] = [3, 5, 1, Cv.R - 1, 2**254, 0]
+        x, y = BC.g1_affine_to_limbs(pts[:n])
+        x[:2], y[:2] = F.to_mont(0), F.to_mont(2)
+        for i in (2, 3):
+            x[i + h], y[i + h], k[i + h] = x[i], y[i], 1
+        mask = np.ones(n, bool)
+        mask[[h, n - 1]] = False
+        out[("double_add", n)] = (x, y, BC.scalars_to_bits(k, 255), mask)
+    return out
+
+
+def msm_edge_plain() -> dict:
+    """K13's plain version on the CPU, one torch thread, on
+    `msm_edge_inputs`' Pippenger shapes: canonical numpy coordinates.
+    `main` runs it in a worker process beside the card's phases."""
+    import torch
+
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+
+    out = {}
+    for key, val in msm_edge_inputs().items():
+        if key[0] == "pippenger":
+            t = tuple(torch.from_numpy(np.ascontiguousarray(a))
+                      for a in val[:3])
+            out[key] = tuple(F.fq_canon(c).numpy()
+                             for c in B.msm_pippenger_plain(*t, key[1]))
+    return out
+
+
+def check_msm_edges(dev) -> tuple:
+    """K13 at MSM_EDGE_PIP, K14 at MSM_EDGE_DA and K27 at D = 1-4 on
+    their edge inputs, against the plain versions by `_same_points`
+    (K13's from EDGE's worker on the CPU, K14's from `precompute_plain`
+    on the card, K27's here); K13's points against the oracle's g1.msm of
+    its digits' scalars.  Returns the three kernels' max abs errors."""
+    import torch
+
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls import curve as Cv
+    from consensus_specs_tpu_torch.ops.bls_batch import curve as BC
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+
+    inputs = msm_edge_inputs()
+    t0 = time.perf_counter()
+    plain = EDGE["msm_edge"].get(timeout=900)
+    wait = time.perf_counter() - t0
+    err13 = err14 = 0
+    for key, val in inputs.items():
+        t = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                  for a in val[:4 if key[0] == "double_add" else 3])
+        if key[0] == "pippenger":
+            c = key[1]
+            got = K.msm_pippenger_kernel(*t, c)
+            want = tuple(torch.from_numpy(a).to(dev) for a in plain[key])
+            err13 = max(err13, _same_points(f"msm_pippenger edge {key[1:]}",
+                                            got, want))
+            W = val[2].shape[1]
+            scalars = [sum(int(d) << (c * (W - 1 - w))
+                           for w, d in enumerate(row)) for row in val[2]]
+            if not Cv.g1.eq_points(BC.g1_limbs_to_oracle(got),
+                                   Cv.g1.msm(val[3], scalars)):
+                raise AssertionError(f"msm_pippenger edge {key[1:]}: not "
+                                     "the oracle's g1.msm")
+        else:
+            got = K.msm_double_add_kernel(*t)
+            want, _ = plain_ref(f"msm_edge_{key[1]}",
+                                lambda: B.msm_double_add_plain(*t), *t)
+            err14 = max(err14, _same_points(f"msm_double_add edge {key[1]}",
+                                            got, want))
+    pts = [Cv.g1.mul(Cv.G1_GEN, 5 + i) for i in range(2)]
+    pts.append(Cv.g1.neg(pts[0]))
+    x, y = BC.g1_affine_to_limbs(pts)
+    one = np.broadcast_to(F.ONE_MONT, x.shape[1:]).astype(np.int32)
+    err27 = 0
+    for rows in ([0], [0, 0], [0, 2], [None, 1], [1, 0, 0], [0, 0, None, 1],
+                 [2, None, 0, 2], [None, None, None, None]):
+        X, Y, Z = (torch.from_numpy(np.stack(a)).to(dev) for a in (
+            [x[i or 0] for i in rows], [y[i or 0] for i in rows],
+            [one if i is not None else 0 * one for i in rows]))
+        err27 = max(err27, _same_points(
+            f"g1_shard_fold edge {rows}", K.g1_shard_fold_kernel(X, Y, Z),
+            B.g1_shard_fold_plain(X, Y, Z)))
+    shapes = [k[1:] for k in inputs if k[0] == "pippenger"]
+    print(f"msm edges: K13 at (c, n) {shapes} (a window of zero digits, "
+          f"one bucket's chain n "
+          f"long, P + P, Q - Q at infinity and back, zero scalars, a sum at "
+          f"infinity) equal to the plain versions (on the CPU beside the "
+          f"card's phases; {wait:.3f} s waited for them) and to g1.msm; K14 "
+          f"at {list(MSM_EDGE_DA)} lanes (the order-3 point with 3 and 5, "
+          f"scalars 1, r - 1, 2^254, 0, masked lanes, P + P and P - P in "
+          f"the tree) and K27 at D = 1-4 (equal, opposite and infinite "
+          f"partials) equal to the plain versions")
+    return err13, err14, err27
 
 
 def g1fft_setup_inputs(start: int, stop: int) -> tuple:
@@ -4128,6 +4368,7 @@ def main() -> int:
              for r in range(0, DC.L, G1_PLAIN_ROWS)}
     tasks["inverse"] = (g1fft_plain_inverse, ())
     tasks["edge"] = (g1fft_edge_plain, ())
+    tasks["msm_edge"] = (msm_edge_plain, ())
     EDGE["pool"] = multiprocessing.get_context("spawn").Pool(
         len(tasks), initializer=_plain_worker_init)
     for key, (fn, args) in tasks.items():
@@ -4427,6 +4668,10 @@ def main() -> int:
         kernels["rlc_miller_product"]["max_abs_err"], err_edges)
     err25, err26 = max(err25, err_edges), max(err26, err_edges)
     phase("rlc edge shapes")
+    for name, err in zip(("msm_pippenger", "msm_double_add", "g1_shard_fold"),
+                         check_msm_edges(dev)):
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+    phase("msm edges")
     step_want = step(reg, sc, n, leaves)
     sharded_counts = sharded_step_path(dev, reg, leaves, sc, params,
                                        step_want, n)

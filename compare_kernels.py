@@ -7,7 +7,8 @@ checkout of the port, so that two commits compare on one card:
 
 It imports `consensus_specs_tpu_torch` from DIR (default: this script's
 directory), builds that checkout's libraries of the group (`bls`, `epoch`,
-`g1fft` or `all`, the default) with its own `_build`, and times, by CUDA events
+`g1fft`, `msm` or `all`, the default) with its own `_build`, and times, by
+CUDA events
 around each call with a sleep kernel ahead (`chip_smoke.py`'s `device_ms`,
 whose helpers and inputs it uses), in the `bls` group:
 
@@ -19,8 +20,10 @@ whose helpers and inputs it uses), in the `bls` group:
   on the sharded batch's 4 partials;
 - K16 on `chip_smoke.py`'s config #5 blob 0 at W = 4096, at its
   challenge (the commitment by K14 on the card);
-- K7 (`fq12_mul`) and K15 (an inversion) on 1024 random elements, and
-  K13 and K14 on `chip_smoke.py`'s MSM probe at its MSM_SIZES;
+- K7 (`fq12_mul`) and K15 (an inversion) on 1024 random elements;
+- the `msm` group's calls: K13 and K14 on `chip_smoke.py`'s MSM probe
+  at its MSM_SIZES, K13 on shard 0 of the probe's 512 points over 4
+  shards (128 points, c = 6) and K27 on the 4 partials;
 
 and in the `epoch` group, on `chip_smoke.py`'s 2**20-validator registry
 and `bench.py`'s 1% dirty set, through functions both checkouts have:
@@ -45,12 +48,12 @@ and in the `g1fft` group, on `chip_smoke.py`'s inputs:
   those rows;
 - one `_fk20_proofs_device` call on that blob (its host compression
   included: CUDA events around a call that syncs);
-- where the checkout has it (`kernels.g1_product_chain`), one pass
-  round's product latency, in us.
+- in every group but `epoch`, where the checkout has it
+  (`kernels.g1_product_chain`), one pass round's product latency, in us.
 
-Its K19 and K20 digests cover the coordinates of the finite points and
-the Z = 0 flags (a point at infinity's X and Y are read by nobody); the
-producer's, its proof bytes.
+Its K13, K14, K19, K20 and K27 digests cover the coordinates of the
+finite points and the Z = 0 flags (a point at infinity's X and Y are
+read by nobody); the producer's, its proof bytes.
 
 It prints, last, one JSON line: the label, the card's name and power
 limit, each kernel's mean device ms, and a SHA-256 of each kernel's
@@ -75,9 +78,10 @@ HERE = Path(__file__).resolve().parent
 REPS = 5
 SHARDS = 4
 SOURCES = {"bls": ("bls_rlc", "bls_h2c", "bls_shard", "bls_pairing",
-                   "bls_msm", "fr_batch"),
+                   "bls_msm", "fr_batch", "g1_fft"),
            "epoch": ("epoch_sweep", "sha256", "records_root", "incremental"),
-           "g1fft": ("g1_fft", "fr_batch")}
+           "g1fft": ("g1_fft", "fr_batch"),
+           "msm": ("bls_msm", "g1_fft")}
 SHARDS_K24 = 4
 # a call's set-up, run before it outside the timed events
 SETUPS = {}
@@ -244,7 +248,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--label", default="")
-    ap.add_argument("--group", choices=("bls", "epoch", "g1fft", "all"),
+    ap.add_argument("--group", choices=("bls", "epoch", "g1fft", "msm",
+                                        "all"),
                     default="all")
     args = ap.parse_args()
     root = Path(args.root).resolve()
@@ -263,7 +268,7 @@ def main() -> int:
     groups = (("bls", "epoch", "g1fft") if args.group == "all"
               else (args.group,))
     t0 = time.perf_counter()
-    _build.build(tuple(n for g in groups for n in SOURCES[g]))
+    _build.build(tuple(dict.fromkeys(n for g in groups for n in SOURCES[g])))
     build_s = time.perf_counter() - t0
     dev = torch.device("cuda:0")
     calls, after = {}, None
@@ -274,6 +279,8 @@ def main() -> int:
         calls.update(epoch)
     if "g1fft" in groups:
         calls.update(g1fft_calls(cs, dev))
+    if "msm" in groups:
+        calls.update(msm_group_calls(cs, dev))
 
     ms, digests = {}, {}
     for name, fn in calls.items():
@@ -282,7 +289,7 @@ def main() -> int:
             setup()
         digests[name] = DIGESTS.get(name, _digest)(fn())
         ms[name] = cs.device_ms(fn, REPS, setup)
-    if "g1fft" in groups:
+    if "epoch" not in groups or len(groups) > 1:
         from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
 
         if hasattr(K, "g1_product_chain"):
@@ -388,9 +395,42 @@ def bls_calls(cs, dev) -> dict:
     fr = torch.from_numpy(FB.FR.to_mont_batch(
         [r.randrange(FB.R_MODULUS) for _ in range(1024)])).to(dev)
     calls["fr_field_ops_inv"] = lambda: FB.field_op("inv", fr)
+    calls.update(msm_group_calls(cs, dev))
+    return calls
+
+
+def msm_group_calls(cs, dev) -> dict:
+    """The msm group's calls {name: fn}: K13 and K14 on `chip_smoke.py`'s
+    MSM probe at its MSM_SIZES; K13 on shard 0 of the probe's 512 points
+    over SHARDS shards (the sharded MSM's per-shard call) and K27 on the
+    SHARDS partials."""
+    import numpy as np
+    import torch
+
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
+
+    calls = {}
     for n in cs.MSM_SIZES:
         name, *_, kernel, _ = cs.msm_calls(n, dev)
         calls[f"{name}_{n}"] = kernel
+    pts, ks = cs.msm_probe()
+    n = 512
+    per = B._bucket(-(-n // SHARDS))
+    c = B._msm_window(per)
+    x, y = B.C.g1_affine_to_limbs(pts[:n])
+    digits = B.C.scalars_to_digits(ks[:n], B.SCALAR_BITS, c)
+    shards = [tuple(torch.from_numpy(np.ascontiguousarray(
+        a[s * per:(s + 1) * per])).to(dev) for a in (x, y, digits))
+        for s in range(SHARDS)]
+    calls[f"msm_pippenger_shard_{per}"] = (
+        lambda: K.msm_pippenger_kernel(*shards[0], c))
+    partials = [K.msm_pippenger_kernel(*t, c) for t in shards]
+    folded = [torch.stack([p[k] for p in partials]) for k in range(3)]
+    calls[f"g1_shard_fold_{SHARDS}"] = (
+        lambda: K.g1_shard_fold_kernel(*folded))
+    for name in calls:
+        DIGESTS[name] = _points_digest
     return calls
 
 

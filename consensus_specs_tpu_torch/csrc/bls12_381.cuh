@@ -436,9 +436,10 @@ __device__ __noinline__ void store_fp12(int32_t* dst, const Fp12& a) {
 
 // --- generic field interface for the curve code ----------------------------
 
-// The serial G1 chains (pt_add, pt_double on Fp: K13, K14, K27) take one
-// non-inlined Fp product, as the Fp2 ones take fp2_mul: with the products
-// inlined, pt_add spilled 5.8 KB and K13 at 512 points took 2.8x as long.
+// The generic curve code on Fp (the doubling in pt_add_finish's T = Q
+// branch) takes one non-inlined Fp product, as the Fp2 code takes
+// fp2_mul: with the products inlined, the serial pt_add on Fp spilled
+// 5.8 KB.
 __device__ __noinline__ void fp_mul_call(Fp& r, const Fp& a, const Fp& b) {
   fp_mul(r, a, b);
 }
@@ -476,7 +477,7 @@ __device__ __forceinline__ void pt_infinity(Jac<F>& r) {
 }
 
 // dbl-2007-bl; Z = 0 and Y = 0 both land on Z3 = 0.  pt_add's doubling
-// branch inlines this body: as a nested call to the non-inlined pt_double
+// branch inlines this body: as a nested call to a non-inlined doubling
 // it faulted (illegal address) in the G1 FFT's butterfly rounds on sm_90a.
 template <class F>
 __device__ __forceinline__ void pt_double_body(Jac<F>& r, const Jac<F>& p) {
@@ -506,11 +507,6 @@ __device__ __forceinline__ void pt_double_body(Jac<F>& r, const Jac<F>& p) {
   r.x = X3;
   r.y = Y3;
   r.z = Z3;
-}
-
-template <class F>
-__device__ __noinline__ void pt_double(Jac<F>& r, const Jac<F>& p) {
-  pt_double_body(r, p);
 }
 
 // add-2007-bl; equal inputs double, opposite inputs give infinity, an

@@ -531,11 +531,11 @@ def precomp_miller_product_kernel(xp, yp, lines, mask):
 
 
 def msm_pippenger_kernel(x, y, digits, c: int):
-    """K13: sum_i k_i P_i by Pippenger's buckets, c-bit windows (digits
-    (B, W), most significant first); one Jacobian point (X, Y, Z), each
-    (33,) canonical."""
+    """K13: sum_i k_i P_i by Pippenger's buckets, c-bit windows, c <= 10
+    (digits (B, W), most significant first; a window's buckets live in
+    shared memory); one Jacobian point (X, Y, Z), each (33,) canonical."""
     B, W = digits.shape
-    if not 1 <= c <= 16 or W != -(-255 // c) or W > 64:
+    if not 1 <= c <= 10 or W != -(-255 // c) or W > 64:
         raise ValueError(f"msm_pippenger: window {c} with {W} windows")
     for name, t, shape in (("x", x, (B, 33)), ("y", y, (B, 33)),
                            ("digits", digits, (B, W))):

@@ -581,7 +581,8 @@ def test_final_exp_is_one_edge_inputs(dev):
 
 
 @pytest.mark.parametrize("n,algo", [(8, "pippenger"), (16, "pippenger"),
-                                    (8, "double-add"), (40, "double-add")])
+                                    (128, "pippenger"), (8, "double-add"),
+                                    (40, "double-add")])
 def test_msm_kernels(dev, n, algo):
     from consensus_specs_tpu_torch.ops import bls_batch as B
     from consensus_specs_tpu_torch.ops.bls import curve as C
@@ -605,6 +606,107 @@ def test_msm_kernels(dev, n, algo):
     assert _all_equal(got, want)
     assert C.g1.eq_points(B.g1_multi_exp_device(pts, ks, algo=algo),
                           C.g1.msm(pts, ks))
+
+
+def _msm_edge_digits(c, n, seed):
+    """K13's edge inputs at window c over n points (limbs x, y and digits
+    (n, W)): seeded multiples of G1 where point 1 repeats point 0, point 2
+    is its negative and point 4 the negative of point 3; window 0 all zero
+    digits; every point in the top bucket of window 1 (one chain n long,
+    through P + P and Q - Q); points 0-2 alone in bucket 3 of window 2 (P
+    then P doubles, then -P); points 3-5 in bucket 5 of window 3 (Q then
+    -Q gives infinity, point 5 brings the bucket back); the last two
+    points all zero digits.  Returns (pts, x, y, digits)."""
+    import random
+
+    from consensus_specs_tpu_torch.ops.bls import curve as Cv
+    from consensus_specs_tpu_torch.ops.bls_batch import curve as BC
+
+    r = random.Random(seed)
+    nb, W = 1 << c, -(-255 // c)
+    mults = [r.randrange(1, 2**64) for _ in range(n)]
+    mults[1], mults[2] = mults[0], Cv.R - mults[0]
+    mults[4] = Cv.R - mults[3]
+    pts = [Cv.g1.mul(Cv.G1_GEN, m) for m in mults]
+    x, y = BC.g1_affine_to_limbs(pts)
+    digits = np.array([[r.randrange(nb) for _ in range(W)]
+                       for _ in range(n)], np.int32)
+    digits[:, 0] = 0
+    digits[:, 1] = nb - 1
+    digits[3:, 2][digits[3:, 2] == 3] = 2
+    digits[:3, 2] = 3
+    digits[:3, 3][digits[:3, 3] == 5] = 6
+    digits[3:6, 3] = 5
+    digits[-2:] = 0
+    return pts, x, y, digits
+
+
+@pytest.mark.parametrize("c,n", [(4, 16), (6, 64), (8, 256), (4, 8)])
+def test_msm_pippenger_edges(dev, c, n):
+    """K13 at c = 4, 6, 8 on `_msm_edge_digits` against its plain version
+    (flags where Z = 0) and the oracle's g1.msm of the digits' scalars;
+    (4, 8): four pairs P, -P with equal digits, whose sum is infinity."""
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+    from consensus_specs_tpu_torch.ops.bls import curve as Cv
+    from consensus_specs_tpu_torch.ops.bls_batch import curve as BC
+
+    if n == 8:
+        pts = [Cv.g1.mul(Cv.G1_GEN, 7 + i // 2) for i in range(n)]
+        pts = [p if i % 2 == 0 else Cv.g1.neg(p) for i, p in enumerate(pts)]
+        x, y = BC.g1_affine_to_limbs(pts)
+        digits = np.repeat(BC.scalars_to_digits(
+            [3 ** (i + 40) % Cv.R for i in range(n // 2)], 255, c), 2, 0)
+    else:
+        pts, x, y, digits = _msm_edge_digits(c, n, seed=c)
+    t = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in (x, y, digits))
+    got = B.msm_pippenger(*t, c)
+    assert _same_points(got, B.msm_pippenger(*t, c, plain=True))
+    W = digits.shape[1]
+    ks = [sum(int(d) << (c * (W - 1 - w)) for w, d in enumerate(row))
+          for row in digits]
+    want = Cv.g1.msm(pts, ks)
+    assert Cv.g1.eq_points(B.C.g1_limbs_to_oracle(got), want)
+    assert Cv.g1.is_inf(want) == (n == 8)
+
+
+def _double_add_edges(n, seed):
+    """K14's edge inputs over n lanes (x, y, bits, mask): seeded points
+    and 255-bit scalars; the G1 point (0, 2) of order 3 with scalars 3
+    (T = -Q gives infinity) and 5 (T = Q doubles); scalars 1, r - 1 and
+    2^254; a zero scalar on a live lane; lanes 2 and 2 + n/2 equal (the
+    tree's first level meets P + P), lanes 3 and 3 + n/2 opposite (P +
+    (-P)); masked lanes in the middle and at the end."""
+    import random
+
+    from consensus_specs_tpu_torch.ops.bls import curve as Cv
+    from consensus_specs_tpu_torch.ops.bls_batch import curve as BC
+    from consensus_specs_tpu_torch.ops.bls_batch import fq as F
+
+    r = random.Random(seed)
+    h = n // 2
+    pts = [Cv.g1.mul(Cv.G1_GEN, r.randrange(1, 2**64)) for _ in range(n)]
+    ks = [r.randrange(Cv.R) for _ in range(n)]
+    ks[:6] = [3, 5, 1, Cv.R - 1, 2**254, 0]
+    pts[2 + h], ks[2 + h] = pts[2], 1
+    pts[3 + h], ks[3 + h] = pts[3], 1
+    x, y = BC.g1_affine_to_limbs(pts)
+    x[:2], y[:2] = F.to_mont(0), F.to_mont(2)
+    mask = np.ones(n, bool)
+    mask[[h, n - 1]] = False
+    return x, y, BC.scalars_to_bits(ks, 255), mask
+
+
+@pytest.mark.parametrize("n", [16, 64])
+def test_msm_double_add_edges(dev, n):
+    """K14 on `_double_add_edges` against its plain version (flags where
+    Z = 0)."""
+    from consensus_specs_tpu_torch.ops import bls_batch as B
+
+    t = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in _double_add_edges(n, seed=n))
+    got = B.msm_double_add(*t)
+    assert _same_points(got, B.msm_double_add(*t, plain=True))
 
 
 def test_facade_eager_calls_and_multi_exp_on_the_card(dev):
@@ -1397,9 +1499,11 @@ def test_g1_shard_fold_kernel(dev):
     from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
 
     pts = [curve.g1.mul(curve.G1_GEN, 5 + i) for i in range(2)]
+    pts.append(curve.g1.neg(pts[0]))
     x, y = BC.g1_affine_to_limbs(pts)
     one = np.broadcast_to(F.ONE_MONT, x.shape[1:]).astype(np.int32)
-    for rows in ([0, 0, None, 1], [None, None, None], [1, 0, 0]):
+    for rows in ([0, 0, None, 1], [None, None, None], [1, 0, 0], [0],
+                 [1, 1], [0, 2], [2, None, 0, 2], [None]):
         X = torch.from_numpy(np.stack([x[r or 0] for r in rows])).to(dev)
         Y = torch.from_numpy(np.stack([y[r or 0] for r in rows])).to(dev)
         Z = torch.from_numpy(np.stack([one if r is not None else 0 * one
