@@ -62,7 +62,11 @@ and PyTorch built for CUDA.  The script:
    floor (its pass rounds times a round's product latency), and the
    facade's `multi_exp` routing at 15 and 16 points;
 10. slice 5, the scalar field: K15 (`fr_field_ops`) canonically equal to
-   the plain Fr ops on 1024 random elements and 0, 1, r - 1;
+   the plain Fr ops on 1024 random elements and 0, 1, r - 1, and its
+   batch inverse (the recovery's, one launch) at 1, 2, 8, 8192 (also
+   with a zero element) and 65539 elements (runs of several a thread),
+   against its plain product tree and the ints' inverses; the Fr
+   product's latency on one thread;
 11. config #5, Deneb `verify_blob_kzg_proof_batch` over `bench.py`
    worker_kzg's 6 blobs: commitments (K14 at 4096 points) and proofs
    (K16 + K14) made on the card, one commitment held against the host
@@ -81,7 +85,9 @@ and PyTorch built for CUDA.  The script:
 13. fulu `compute_cells` of `bench.py`'s closed-form degree-65 blob
    through K18 (n = 4096 inverse, n = 8192 forward): its 128 cells equal
    to the closed form and the host FFT route, K18 equal to its plain
-   version at both sizes;
+   version at both sizes; then K18 against its plain version at every
+   path shape ((1, 8192) both ways, (2, 8192), (1, 4096) inverse, (64,
+   128)) and at the tile's edges (n = 2, T, 2T);
 14. slice 6, the G1 FFT: K19 (`g1_fft`) against its plain version at the
    FK20 setup shape (64, 128) forward on the trusted setup's residue
    vectors and at (1, 128) inverse (which must come back to the setup
@@ -106,8 +112,9 @@ and PyTorch built for CUDA.  The script:
    columns 0 and 77 equal to `cell_proof_for_column` (K14 at 4032);
 16. `recover_cells_and_kzg_proofs` from the 64 even cells of both blobs
    (the decode on K18 and K15, the re-evaluation, the FK20 re-prove):
-   byte-equal to the closed form and the producer's output, cold and
-   warm times with the split; 63 cells and a duplicate index rejected;
+   byte-equal to the closed form and the producer's output, at most 7 K15
+   launches, cold and warm times with the split; 63 cells and a duplicate
+   index rejected;
 17. slice 7, fork choice: K21 (`fc_apply`), K22 (`fc_refresh`) and K23
    (`fc_head`) against their plain versions at the mainnet shape (1024
    blocks, 2**20 validators, batches of 16384) on seeded inputs with a
@@ -218,6 +225,18 @@ DAS_TIMED = 2
 DAS_SUB = 16
 DAS_BAD = 5
 FR_FIELD_N = 1024
+# K15's batch inverse: (n, a zero element); past 256 blocks of 256
+# threads (n = 65539) a thread takes a run of elements; the recovery's
+# n = 8192 is the one timed.  K18's shapes held against
+# the plain version (batch, n, inverse): the paths' (the recovery's
+# decode and re-evaluation, compute_cells, FK20's rows) and the tile's
+# edges at T = FFT_TILE; the Fr product latency probe's chain
+FR_BATCH_INV = ((1, False), (2, False), (8, False), (8192, True),
+                (8192, False), (65539, False))
+K18_SHAPES = ((1, 8192, False), (1, 8192, True), (2, 8192, False),
+              (1, 4096, True), (64, 128, False), (1, 2, False),
+              (1, "T", False), (1, "2T", True), (3, "2T", False))
+FR_CHAIN_PROBE = 4096
 # slice 6: the producer's and the recovery's warm repeats
 DAS_PRODUCER_TIMED = 3
 DAS_RECOVER_TIMED = 3
@@ -2088,13 +2107,17 @@ def _bls_wrappers():
 def check_fr_field_kernels(dev, record, int32_ops_per_s):
     """K15 against the plain Fr ops on FR_FIELD_N random canonical
     elements plus the edge values 0, 1, r - 1 (and on signed-lazy limbs
-    for `canon`); inv(0) = 0 and every product against Python ints."""
+    for `canon`); inv(0) = 0 and every product against Python ints; the
+    batch inverse at FR_BATCH_INV's sizes and zeros against its
+    plain version and the ints' inverses; the Fr product's latency; the
+    times of `inv` and of the recovery's batch inverse."""
     import random
 
     import torch
 
     from consensus_specs_tpu_torch import _build
     from consensus_specs_tpu_torch.ops import fr_batch as FB
+    from consensus_specs_tpu_torch.ops.fr_batch import kernels as FK
 
     R = FB.R_MODULUS
     r = random.Random(SEED + 5)
@@ -2120,9 +2143,43 @@ def check_fr_field_kernels(dev, record, int32_ops_per_s):
     if FB.from_limbs(FB.field_op("mul", a, b)) != [
             x * y % R for x, y in zip(xs, ys)]:
         raise AssertionError("fr_field_ops: products differ from ints")
+    # the batch inverse (the recovery's, one launch) at its edges: one
+    # element, two, runs of several elements, a zero element (every
+    # output 0) (the plain tree takes seconds at 8192: timed)
+    bi = {}
+    for m, zero in FR_BATCH_INV:
+        vals = [r.randrange(1, R) for _ in range(m)]
+        if zero:
+            vals[m // 3] = 0
+        x = torch.from_numpy(FB.FR.to_mont_batch(vals)).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = FB.batch_inverse(x, plain=True)
+        torch.cuda.synchronize()
+        want = [0] * m if zero else [pow(v, R - 2, R) for v in vals]
+        bi[(m, zero)] = (x, (time.perf_counter() - t0) * 1e3)
+        got = FK.batch_inverse_kernel(x)
+        err = max(err, require_equal(f"fr_batch_inverse n={m}"
+                                     f"{' with a zero' if zero else ''}",
+                                     got, plain))
+        if FB.from_limbs(got) != want:
+            raise AssertionError(f"fr_batch_inverse n={m}: not the inverses")
     counts = read_launches("fr field checks")
     print(f"fr field checks: {len(cases)} ops on {n} elements and 0, 1, "
-          f"r - 1 each: equal to the plain versions")
+          f"r - 1 each, the batch inverse at (n, zero) {FR_BATCH_INV}:"
+          f" equal to the plain versions")
+    lat_us = FR_PROBE["latency_us"] = fr_product_latency_us(dev)
+    x, bi_plain = bi[(8192, False)]
+    bi_ms = device_ms(lambda: FB.batch_inverse(x), 5)
+    bi_bound, _ = fr_bound(batch_inv_products(8192), 2 * 8192 * 132,
+                           int32_ops_per_s)
+    inv1_ms = device_ms(lambda: FB.field_op("inv", a[:1]), 5)
+    bi_chain = batch_inverse_chain_products(8192)
+    print(f"fr product latency (one thread, a chain of {FR_CHAIN_PROBE}): "
+          f"{lat_us:.4f} us; K15 inv of one element {inv1_ms:.6f} ms; batch "
+          f"inverse n=8192 {bi_ms:.6f} ms (plain {bi_plain:.3f} ms, bound "
+          f"{bi_bound:.6f} ms, chain floor {bi_chain} products + one "
+          f"inversion: {bi_chain * lat_us / 1e3 + inv1_ms:.6f} ms)")
     products = batch_inv_products(n + 3)
     record("fr_field_ops", "consensus_specs_tpu_torch/csrc/fr_batch.cu",
            "consensus_specs_tpu/ops/fr_batch.py:48", err,
@@ -2130,13 +2187,93 @@ def check_fr_field_kernels(dev, record, int32_ops_per_s):
            cuda_ms(lambda: FB.field_op("inv", a, plain=True), 1),
            *fr_bound(products, 2 * (n + 3) * 132, int32_ops_per_s),
            montgomery_products=products,
-           shape=f"inv over {n + 3} elements (the op timed); not on the "
-           "main path", replaces_also=[
+           shape=f"inv over {n + 3} elements (the op timed); on the "
+           "producer's path (FK20's scalars, mul) and the recovery's (the "
+           "decode's products and its batch inverse)",
+           product_latency_us=lat_us, inv_1_ms=inv1_ms,
+           batch_inverse_ms=bi_ms, batch_inverse_plain_ms=bi_plain,
+           batch_inverse_bound_ms=bi_bound,
+           batch_inverse_chain_floor_ms=bi_chain * lat_us / 1e3 + inv1_ms,
+           batch_inverse_shape="n=8192 (the recovery's), one launch",
+           replaces_also=[
                "consensus_specs_tpu/ops/fr_batch.py:123",
                "consensus_specs_tpu/ops/fr_batch.py:146",
                "consensus_specs_tpu/ops/fr_batch.py:163",
-               "consensus_specs_tpu/ops/fr_batch.py:182"])
+               "consensus_specs_tpu/ops/fr_batch.py:182",
+               "consensus_specs_tpu/das/recover.py:110"])
     return counts
+
+
+# the Fr product latency, measured once by `check_fr_field_kernels`
+FR_PROBE = {}
+
+
+def fr_product_latency_us(dev) -> float:
+    """The Fr product's latency on one thread, in us: FR_CHAIN_PROBE
+    dependent products (`kernels.fr_product_chain`), less the empty
+    chain's launch; the chain's value held against the host's a^(2^n)."""
+    import torch
+
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+    from consensus_specs_tpu_torch.ops.fr_batch import kernels as FK
+
+    a = torch.from_numpy(FB.FR.to_mont(7)).to(dev)
+    got = FB.from_limbs(FK.fr_product_chain(a, FR_CHAIN_PROBE))
+    if got != [pow(7, 2**FR_CHAIN_PROBE, FB.R_MODULUS)]:
+        raise AssertionError("fr_product_chain: wrong value")
+    full = device_ms(lambda: FK.fr_product_chain(a, FR_CHAIN_PROBE), 5)
+    empty = device_ms(lambda: FK.fr_product_chain(a, 0), 5)
+    return (full - empty) / FR_CHAIN_PROBE * 1e3
+
+
+def batch_inverse_chain_products(n: int) -> int:
+    """K15's batch inverse's chain in Fr products beside its one
+    inversion, at one element a thread: the load (1 product for canonical
+    limbs), a block's heap up and down (8 levels each at 256 threads),
+    block 0's heap over the blocks up and down, the store (1)."""
+    from consensus_specs_tpu_torch.ops.fr_batch import kernels as FK
+
+    blocks = min(256, -(-n // FK.INV_BLOCK))
+    return (1 + 2 * (FK.INV_BLOCK.bit_length() - 1)
+            + 2 * (blocks - 1).bit_length() + 1)
+
+
+def k18_chain_products(n: int) -> int:
+    """K18's chain in Fr products: the load (1 for canonical limbs), a
+    product a stage, the scale and store (1)."""
+    return 1 + (n.bit_length() - 1) + 1
+
+
+def check_k18_shapes(dev) -> dict:
+    """K18 against its plain version on the card at every shape of
+    K18_SHAPES (seeded rows over the order-n roots of unity); the max abs
+    error.  (Its CUDA launches a call are counted by
+    `compare_kernels.py --group fr`.)"""
+    import random
+
+    import torch
+
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+    from consensus_specs_tpu_torch.ops.fr_batch import kernels as FK
+
+    R = FB.R_MODULUS
+    T = FK.FFT_TILE
+    rng = random.Random(SEED + 18)
+    err, shapes = 0, []
+    for batch, n, inverse in K18_SHAPES:
+        n = {"T": T, "2T": 2 * T}.get(n, n)
+        g = pow(7, (R - 1) // n, R)
+        roots = [pow(g, i, R) for i in range(n)]
+        rows = [[rng.randrange(R) for _ in range(n)] for _ in range(batch)]
+        args = tuple(torch.from_numpy(a).to(dev)
+                     for a in FB.fft_inputs(rows, roots, inverse))
+        label = f"({batch}, {n}){' inverse' if inverse else ''}"
+        err = max(err, require_equal(f"fr_fft {label}", FB.fft(*args),
+                                     FB.FR.canon(FB.fft(*args, plain=True))))
+        shapes.append(label)
+    print(f"K18 at {', '.join(shapes)} (T = {T}): equal to the plain "
+          f"version")
+    return err
 
 
 def check_k16_edges(dev, poly, roots) -> int:
@@ -2527,11 +2664,16 @@ def compute_cells_path(dev, record, int32_ops_per_s):
           + " equal to the plain version")
     nn, kms, pms, products, (bms, by) = sizes["forward"]
     inn, ikms, ipms, iproducts, (ibms, _) = sizes["inverse"]
+    from consensus_specs_tpu_torch.ops.fr_batch import kernels as FK
+
+    lat_ms = FR_PROBE["latency_us"] / 1e3
     record("fr_fft", "consensus_specs_tpu_torch/csrc/fr_batch.cu",
            "consensus_specs_tpu/ops/fr_batch.py:417", err, kms, pms, bms, by,
            montgomery_products=products,
            shape=f"n={nn} forward, batch 1 (compute_cells' extension)",
+           tile=FK.FFT_TILE, chain_floor_ms=k18_chain_products(nn) * lat_ms,
            inverse_ms=ikms, inverse_plain_ms=ipms, inverse_bound_ms=ibms,
+           inverse_chain_floor_ms=k18_chain_products(inn) * lat_ms,
            inverse_shape=f"n={inn} inverse, batch 1",
            replaces_also=["consensus_specs_tpu/ops/fr_batch.py:515",
                           "consensus_specs_tpu/das/compute.py:122"])
@@ -3342,6 +3484,9 @@ def recovery_path(dense):
     for name in ("fr_fft", "fr_field_ops", "fk20_hext", "g1_fft"):
         if not counts.get(name):
             raise AssertionError(f"the recovery never launched {name}")
+    if counts["fr_field_ops"] > 7:     # 5 decode products, the batch
+        raise AssertionError(           # inverse, FK20's scalars
+            f"the recovery launched K15 {counts['fr_field_ops']} times")
     walls, splits = [], []
     for _ in range(DAS_RECOVER_TIMED):
         tr = {}
@@ -4644,6 +4789,9 @@ def main() -> int:
     phase("das verify")
     cells_counts = compute_cells_path(dev, record, int32_ops_per_s)
     phase("compute_cells")
+    kernels["fr_fft"]["max_abs_err"] = max(kernels["fr_fft"]["max_abs_err"],
+                                           check_k18_shapes(dev))
+    phase("fr fft shapes")
     # -- slice 6: the G1 FFT and FK20, the PeerDAS producer and recovery -----
     k18_fk20 = check_g1fft_kernels(dev, record, int32_ops_per_s)
     phase("g1 fft kernels")
@@ -4695,6 +4843,8 @@ def main() -> int:
                           int32_ops_per_s)
     kernels["fr_fft"].update(fk20_ms=k18_ms, fk20_plain_ms=k18_plain,
                              fk20_bound_ms=k18_bms,
+                             fk20_chain_floor_ms=k18_chain_products(128)
+                             * FR_PROBE["latency_us"] / 1e3,
                              fk20_shape="batch 64, n=128 forward (FK20)")
 
     paths = {"full_step": full_counts, "incremental_step": incr_counts,

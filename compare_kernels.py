@@ -7,7 +7,7 @@ checkout of the port, so that two commits compare on one card:
 
 It imports `consensus_specs_tpu_torch` from DIR (default: this script's
 directory), builds that checkout's libraries of the group (`bls`, `epoch`,
-`g1fft`, `msm` or `all`, the default) with its own `_build`, and times, by
+`fr`, `g1fft`, `msm` or `all`, the default) with its own `_build`, and times, by
 CUDA events
 around each call with a sleep kernel ahead (`chip_smoke.py`'s `device_ms`,
 whose helpers and inputs it uses), in the `bls` group:
@@ -37,6 +37,26 @@ and `bench.py`'s 1% dirty set, through functions both checkouts have:
 - the incremental step (`IncrementalEpochStep`): its device busy time
   (torch.profiler, the sum over its device operations) and its wall
   (host clock, median of 9);
+
+and in the `fr` group (it builds `fr_batch` and `g1_fft`), on seeded
+inputs and `convert.closed_form_blob()`'s:
+
+- K18 at (1, 8192) forward (`compute_cells`' extension), (1, 4096)
+  inverse (its coefficients), (2, 8192) forward (the recovery's coset
+  step) and (64, 128) (FK20's rows);
+- K15's `inv` at 1,027 elements and at one, its `mul` at 8,192;
+- `das.recover._batch_inverse_limbs` at 8,192 (the parent's product tree
+  of K15 launches, the change's one launch);
+- the decode `_recover_coefficient_limbs` from 64 cells, whole (its host
+  work included), and its split by step on the host clock;
+- the walls of the calls K18 and K15 sit in on the producer's path, on
+  the host clock: FK20's `_fk20_proofs_device`, `compute_cells` and the
+  producer `compute_cells_and_kzg_proofs` on that blob;
+- K16 at W = 4096 and K17 on 1024 cells of width 64, as controls;
+- each call's CUDA launches and copies and their device time
+  (torch.profiler, one call), and,
+  where the checkout has it (`kernels.fr_product_chain`), the Fr
+  product's latency on one thread, in us;
 
 and in the `g1fft` group, on `chip_smoke.py`'s inputs:
 
@@ -80,6 +100,7 @@ SHARDS = 4
 SOURCES = {"bls": ("bls_rlc", "bls_h2c", "bls_shard", "bls_pairing",
                    "bls_msm", "fr_batch", "g1_fft"),
            "epoch": ("epoch_sweep", "sha256", "records_root", "incremental"),
+           "fr": ("fr_batch", "g1_fft"),
            "g1fft": ("g1_fft", "fr_batch"),
            "msm": ("bls_msm", "g1_fft")}
 SHARDS_K24 = 4
@@ -244,12 +265,177 @@ def g1fft_calls(cs, dev) -> dict:
     return calls
 
 
+def fr_calls(cs, dev) -> dict:
+    """The fr group's calls {name: fn}: K18 at the paths' shapes, K15,
+    the recovery's batch inverse and decode, K16 and K17 as controls."""
+    import random
+
+    import torch
+
+    from consensus_specs_tpu_torch import convert as CV
+    from consensus_specs_tpu_torch.das import ciphersuite as dcs
+    from consensus_specs_tpu_torch.das import compute as DC
+    from consensus_specs_tpu_torch.das import recover as RC
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+
+    R = FB.R_MODULUS
+    rng = random.Random(cs.SEED + 15)
+
+    def on(arrays):
+        return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+    blob, cells, _, _ = CV.closed_form_blob()
+    m = dcs.FIELD_ELEMENTS_PER_BLOB
+    evals = DC.blob_to_poly_ints(blob)
+    brp = [evals[dcs.reverse_bits(i, m)] for i in range(m)]
+    coeffs = DC.poly_coefficients(blob, device="cpu")
+    ffts = {
+        "1x8192_forward": on(FB.fft_inputs([list(coeffs) + [0] * m],
+                                           dcs.roots_of_unity(2 * m))),
+        "1x4096_inverse": on(FB.fft_inputs([brp], dcs.roots_of_unity(m),
+                                           True)),
+        "2x8192_forward": on(FB.fft_inputs(
+            [[rng.randrange(R) for _ in range(2 * m)] for _ in range(2)],
+            dcs.roots_of_unity(2 * m))),
+    }
+    f = DC._coeff_limbs(coeffs, dev)
+    rows = torch.cat([f, torch.zeros_like(f[:1])])[
+        DC._fk20_row_index(DC.L, DC.K, DC.N_EXT, DC.M, dev)]
+    perm, roots128, one = DC._domain_consts(DC.N_EXT, False, dev)
+    ffts["64x128_forward"] = (rows[:, perm].contiguous(), roots128, one)
+    calls = {f"fr_fft_{k}": (lambda a=a: FB.fft(*a)) for k, a in ffts.items()}
+
+    def limbs(vals):
+        return torch.from_numpy(FB.FR.to_mont_batch(vals)).to(dev)
+
+    inv_in = limbs([rng.randrange(R) for _ in range(1027)])
+    calls["fr_field_ops_inv_1027"] = lambda: FB.field_op("inv", inv_in)
+    calls["fr_field_ops_inv_1"] = lambda: FB.field_op("inv", inv_in[:1])
+    mul_a, mul_b = (limbs([rng.randrange(R) for _ in range(2 * m)])
+                    for _ in range(2))
+    calls["fr_field_ops_mul_8192"] = lambda: FB.field_op("mul", mul_a, mul_b)
+    bi_in = limbs([rng.randrange(1, R) for _ in range(2 * m)])
+    calls["batch_inverse_8192"] = lambda: RC._batch_inverse_limbs(bi_in)
+    keep = list(range(0, 128, 2))
+    dec_rows = RC._cell_rows([cells[k] for k in keep])
+    calls["recover_decode_64_cells"] = (
+        lambda: RC._recover_coefficient_limbs(keep, dec_rows, dev))
+
+    W = m
+    g = pow(7, (R - 1) // W, R)
+    domain = [pow(g, i, R) for i in range(W)]
+    args16 = on(FB.barycentric_inputs([rng.randrange(R) for _ in range(W)],
+                                      domain, rng.randrange(R)))
+    calls["fr_barycentric_4096"] = lambda: FB.barycentric(*args16)
+    B, Wd = 1024, 64
+    args17 = on(FB.coset_interpolate_inputs(
+        [[rng.randrange(R) for _ in range(Wd)] for _ in range(B)],
+        [[rng.randrange(R) for _ in range(Wd)] for _ in range(Wd)],
+        [[rng.randrange(R) for _ in range(Wd)] for _ in range(B)]))
+    calls["fr_coset_interpolate_1024"] = lambda: FB.coset_interpolate(*args17)
+    return calls
+
+
+def cuda_launches(cs, fn) -> dict:
+    """{"kernels": n, "copies": n, "device_ms": t}: the CUDA kernels and
+    the memcpy and memset operations that one call of `fn` runs, and
+    their summed device time, from torch.profiler; None where the
+    profiler records nothing."""
+    per = cs.try_profile("launch count", fn, 1)
+    if not per:
+        return None
+    copies = sum(c for k, c in cs.PROFILE_COUNTS.items()
+                 if k.startswith(("Memcpy", "Memset")))
+    return {"kernels": round(sum(cs.PROFILE_COUNTS.values()) - copies),
+            "copies": round(copies), "device_ms": sum(per.values())}
+
+
+def decode_split(dev) -> dict:
+    """The recovery's decode from 64 cells on the host clock, median of 5
+    (after one warm call): its wall and each step's, every step ended by
+    a synchronize (the steps' own time; the host's conversions of the
+    cells into limbs, `_limbs`, vary most)."""
+    import statistics
+
+    import torch
+
+    from consensus_specs_tpu_torch import convert as CV
+    from consensus_specs_tpu_torch.das import compute as DC
+    from consensus_specs_tpu_torch.das import recover as RC
+
+    _, cells, _, _ = CV.closed_form_blob()
+    keep = list(range(0, 128, 2))
+    rows = RC._cell_rows([cells[k] for k in keep])
+    acc, saved = {}, []
+    for mod, name in ((RC, "_limbs"), (RC, "construct_vanishing_poly"),
+                      (DC, "domain_fft"), (RC, "_mul"),
+                      (RC, "_batch_inverse_limbs")):
+        inner = getattr(mod, name)
+        saved.append((mod, name, inner))
+
+        def timed(*a, _inner=inner, _name=name, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _inner(*a, **k)
+            torch.cuda.synchronize()
+            acc[_name] = acc.get(_name, 0.0) + time.perf_counter() - t0
+            return out
+        setattr(mod, name, timed)
+    runs = []
+    try:
+        for i in range(6):
+            acc.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            RC._recover_coefficient_limbs(keep, rows, dev)
+            torch.cuda.synchronize()
+            if i:
+                runs.append(dict(acc, wall=time.perf_counter() - t0))
+    finally:
+        for mod, name, inner in saved:
+            setattr(mod, name, inner)
+    return {k: statistics.median(r[k] for r in runs) * 1e3 for k in runs[0]}
+
+
+def producer_walls(dev) -> dict:
+    """The walls of FK20's `_fk20_proofs_device`, `compute_cells` and the
+    producer `compute_cells_and_kzg_proofs` on `closed_form_blob()`, on
+    the host clock around a synchronized call, after one warm call:
+    {name: [median, min, max]} ms over 9 calls (5 for the producer)."""
+    import statistics
+
+    import torch
+
+    from consensus_specs_tpu_torch import convert as CV
+    from consensus_specs_tpu_torch import das as D
+    from consensus_specs_tpu_torch.das import compute as DC
+
+    blob = CV.closed_form_blob()[0]
+    coeffs = DC.poly_coefficients(blob, device=dev)
+
+    def wall(fn, k):
+        fn()
+        out = []
+        for _ in range(k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return [statistics.median(out), min(out), max(out)]
+
+    return {"fk20": wall(lambda: DC._fk20_proofs_device(coeffs, device=dev),
+                         9),
+            "compute_cells": wall(lambda: D.compute_cells(blob), 9),
+            "producer": wall(lambda: D.compute_cells_and_kzg_proofs(blob), 5)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--label", default="")
-    ap.add_argument("--group", choices=("bls", "epoch", "g1fft", "msm",
-                                        "all"),
+    ap.add_argument("--group", choices=("bls", "epoch", "fr", "g1fft",
+                                        "msm", "all"),
                     default="all")
     args = ap.parse_args()
     root = Path(args.root).resolve()
@@ -281,19 +467,36 @@ def main() -> int:
         calls.update(g1fft_calls(cs, dev))
     if "msm" in groups:
         calls.update(msm_group_calls(cs, dev))
+    if "fr" in groups:
+        calls.update(fr_calls(cs, dev))
 
-    ms, digests = {}, {}
+    ms, digests, launches = {}, {}, {}
     for name, fn in calls.items():
         setup = SETUPS.get(name)
         if setup:
             setup()
         digests[name] = DIGESTS.get(name, _digest)(fn())
         ms[name] = cs.device_ms(fn, REPS, setup)
-    if "epoch" not in groups or len(groups) > 1:
+        if "fr" in groups:
+            launches[name] = cuda_launches(cs, fn)
+    if any(g in groups for g in ("bls", "g1fft", "msm")):
         from consensus_specs_tpu_torch.ops.bls_batch import kernels as K
 
         if hasattr(K, "g1_product_chain"):
             ms["g1_product_latency_us"] = cs.g1_product_latency_us(dev)
+    split = walls = None
+    if "fr" in groups:
+        from consensus_specs_tpu_torch.ops.fr_batch import kernels as FK
+
+        if hasattr(FK, "fr_product_chain"):
+            ms["fr_product_latency_us"] = cs.fr_product_latency_us(dev)
+        split = decode_split(dev)
+        print("decode split (host clock, median of 5, ms; the batch "
+              "inverse's products inside `_mul` on the parent): "
+              + json.dumps({k: round(v, 4) for k, v in split.items()}))
+        walls = producer_walls(dev)
+        print("producer path walls (host clock, ms, [median, min, max]): "
+              + json.dumps(walls))
     if after:
         digests.update(after(ms))
     batch = None
@@ -307,9 +510,12 @@ def main() -> int:
                       for k, v in ms.items())
           + ("" if batch is None
              else f"; config #2 device-hashing batch {batch:.6f} ms"))
+    if launches:
+        print("cuda launches a call: " + json.dumps(launches))
     print(json.dumps({"label": args.label, "root": str(root), "card": card,
                       "ms": ms, "batch_device_ms": batch,
-                      "digests": digests}))
+                      "digests": digests, "cuda_launches": launches,
+                      "decode_split_ms": split, "walls_ms": walls}))
     return 0
 
 

@@ -63,6 +63,28 @@ __device__ __forceinline__ void load_fr(Fr& r, const int32_t* src) {
 __device__ __forceinline__ void store_fr(int32_t* dst, const Fr& a) {
   mont_store(dst, a);
 }
+// The same conversions with one non-inlined copy of the product, for
+// kernels whose code would otherwise outgrow the instruction cache (K15's
+// batch inverse, K18: a launch that runs each step once pays for fetching
+// its code, and inlined products make that code several times larger),
+// the load skipping the high product where the limbs are canonical; and
+// the store with a scale:
+// k = mont(s R, c_out) -> canonical limbs of x s 2^396 mod r, the scale
+// and the store in one product.
+__device__ __noinline__ void fr_mul_call(Fr& r, const Fr& a, const Fr& b) {
+  mont_mul(r, a, b);
+}
+__device__ __forceinline__ void load_fr_call(Fr& r, const int32_t* src) {
+  mont_load_by<FrField, true>(r, src, [](Fr& o, const Fr& a, const Fr& b) {
+    fr_mul_call(o, a, b);
+  });
+}
+__device__ __forceinline__ void store_fr_times_call(int32_t* dst, const Fr& a,
+                                                    const Fr& k) {
+  mont_store_times_by(dst, a, k, [](Fr& o, const Fr& x, const Fr& y) {
+    fr_mul_call(o, x, y);
+  });
+}
 
 static int fr_write_constants(const uint32_t* words, int n_words) {
   if (n_words * 4 != (int)sizeof(FrConstants)) return cudaErrorInvalidValue;

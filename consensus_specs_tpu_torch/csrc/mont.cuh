@@ -363,11 +363,9 @@ __device__ __noinline__ void mont_inv_binary(Mont<F>& out, const Mont<F>& a) {
   mont_mul(out, out, k);
 }
 
-// boundary: (33,) int32 limbs, value v = x 2^396 (lazy) -> x R
-template <class F>
-__device__ __forceinline__ void mont_load(Mont<F>& out, const int32_t* src) {
-  constexpr int NW = F::NW;
-  uint32_t w[MONT_LW];
+// (33,) int32 limbs (lazy) -> their value v = w + carry 2^396, w the
+// 396 bits of w[0 .. MONT_LW)
+__device__ __forceinline__ int64_t mont_pack(uint32_t* w, const int32_t* src) {
 #pragma unroll
   for (int j = 0; j < MONT_LW; ++j) w[j] = 0;
   int64_t carry = 0;
@@ -380,6 +378,20 @@ __device__ __forceinline__ void mont_load(Mont<F>& out, const int32_t* src) {
     w[wi] |= d << off;
     if (off > 20) w[wi + 1] |= d >> (32 - off);
   }
+  return carry;
+}
+
+// boundary: (33,) int32 limbs, value v = x 2^396 (lazy) -> x R, its
+// products by `mul` (a product r = mont(a, b); `mont_load` inlines
+// mont_mul, a kernel that keeps its code small passes a non-inlined one).
+// With `skip_hi` the product of v's bits from 32 NW up is skipped where
+// they are 0, as they are for canonical limbs (v < m < R).
+template <class F, bool skip_hi = false, class Mul>
+__device__ __forceinline__ void mont_load_by(Mont<F>& out, const int32_t* src,
+                                             Mul mul) {
+  constexpr int NW = F::NW;
+  uint32_t w[MONT_LW];
+  const int64_t carry = mont_pack(w, src);
   // v = lo + hi R + carry 2^396, lo < R, hi < 2^396 / R
   Mont<F> lo, hi, k;
 #pragma unroll
@@ -388,27 +400,40 @@ __device__ __forceinline__ void mont_load(Mont<F>& out, const int32_t* src) {
     hi.w[j] = NW + j < MONT_LW ? w[NW + j] : 0;
   }
   mont_from_const(k, F::k().c_lo);
-  mont_mul(out, lo, k);
-  mont_from_const(k, F::k().c_hi);
-  mont_mul(hi, hi, k);
-  mont_add(out, out, hi);
+  mul(out, lo, k);
+  if (!skip_hi || !mont_is_zero(hi)) {
+    mont_from_const(k, F::k().c_hi);
+    mul(hi, hi, k);
+    mont_add(out, out, hi);
+  }
   if (carry != 0) {
     Mont<F> c;
     mont_zero(c);
     c.w[0] = (uint32_t)(carry < 0 ? -carry : carry);
     mont_from_const(k, F::k().c_top);
-    mont_mul(c, c, k);
+    mul(c, c, k);
     if (carry < 0) mont_sub(out, out, c); else mont_add(out, out, c);
   }
 }
 
-// x R -> canonical limbs of x 2^396 mod m
 template <class F>
-__device__ __forceinline__ void mont_store(int32_t* dst, const Mont<F>& a) {
+__device__ __forceinline__ void mont_load(Mont<F>& out, const int32_t* src) {
+  mont_load_by(out, src, [](Mont<F>& r, const Mont<F>& a, const Mont<F>& b) {
+    mont_mul(r, a, b);
+  });
+}
+
+// x R, k -> canonical limbs of mont(x R, k) = x k mod m, the product by
+// `mul`; k = c_out (2^396) gives the boundary format, k = mont(s R, c_out)
+// = s 2^396 the value times s in one product
+template <class F, class Mul>
+__device__ __forceinline__ void mont_store_times_by(int32_t* dst,
+                                                    const Mont<F>& a,
+                                                    const Mont<F>& k,
+                                                    Mul mul) {
   constexpr int NW = F::NW;
-  Mont<F> k, b;
-  mont_from_const(k, F::k().c_out);
-  mont_mul(b, a, k);
+  Mont<F> b;
+  mul(b, a, k);
 #pragma unroll
   for (int i = 0; i < MONT_NL; ++i) {
     int bit = 12 * i, wi = bit >> 5, off = bit & 31;
@@ -416,4 +441,15 @@ __device__ __forceinline__ void mont_store(int32_t* dst, const Mont<F>& a) {
     if (off > 20 && wi + 1 < NW) v |= b.w[wi + 1] << (32 - off);
     dst[i] = (int32_t)(v & 0xFFF);
   }
+}
+
+// x R -> canonical limbs of x 2^396 mod m
+template <class F>
+__device__ __forceinline__ void mont_store(int32_t* dst, const Mont<F>& a) {
+  Mont<F> k;
+  mont_from_const(k, F::k().c_out);
+  mont_store_times_by(dst, a, k,
+                      [](Mont<F>& r, const Mont<F>& x, const Mont<F>& y) {
+                        mont_mul(r, x, y);
+                      });
 }

@@ -19,7 +19,8 @@ device route (the default, `recover_cells_and_kzg_proofs`)
         (E*Z)  = IFFT(Z(x) * E(x))                   K15 mul, K18 inverse
         coset  = FFT(shift^i * ..) for E*Z and Z     K15 mul, K18 batch 2
         P(x)   = IFFT(coset quotient) / shift^i      K15 (Montgomery's
-                                                     batch inverse), K18
+                                                     batch inverse, one
+                                                     launch), K18
 
     with the bit reversals as device indexing; the vanishing polynomial
     is built on the host from its short order-128 product (at most 64
@@ -141,22 +142,13 @@ def _mul(a, b):
 
 
 def _batch_inverse_limbs(x: torch.Tensor) -> torch.Tensor:
-    """Montgomery's trick on (n, 33) limbs, n a power of two, in log2(n)
-    levels each way: the product tree up, one inversion of the root
-    (K15 `inv`), then each level's inverses from its parents' (K15
-    `mul`, 3 (n - 1) products in all).  No element may be zero."""
-    from ..ops.fr_batch import field_op
+    """Montgomery's trick on (n, 33) limbs: K15's batch inverse in one
+    launch on the card (one binary inversion, 3 (n - 1) products), its
+    plain product tree on the CPU.  A zero element makes every output
+    0."""
+    from ..ops.fr_batch import batch_inverse
 
-    levels = [x]
-    while levels[-1].shape[0] > 1:
-        t = levels[-1]
-        levels.append(_mul(t[0::2], t[1::2]))
-    inv = field_op("inv", _dense(levels[-1]))
-    for lvl in reversed(levels[:-1]):
-        m = inv.shape[0]
-        both = _mul(torch.cat([inv, inv]), torch.cat([lvl[1::2], lvl[0::2]]))
-        inv = torch.stack([both[:m], both[m:]], dim=1).reshape(lvl.shape)
-    return inv
+    return batch_inverse(x)
 
 
 def _limbs(ints, dev) -> torch.Tensor:

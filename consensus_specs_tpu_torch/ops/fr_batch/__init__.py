@@ -13,7 +13,8 @@ synchronous facades do, and run on `device` (CUDA by default;
 Each device stage is a kernel on a CUDA tensor and its plain PyTorch
 version on a CPU tensor (or with `plain=True`):
 
-    field_op               K15  one Fr op elementwise (holds the layer)
+    field_op               K15  one Fr op elementwise
+    batch_inverse          K15  Montgomery's batch inversion, one launch
     barycentric            K16  f(z) over a width-W domain h G
     coset_interpolate      K17  sum_b w[b, j] sum_i e[b, i] M[i, j]
     fft                    K18  radix-2 DIT FFT of bit-reversed rows
@@ -87,6 +88,37 @@ def field_op(op: str, a, b=None, e: int = 0, plain: bool = False):
     if _use_kernel(a, plain):
         return K.field_op_kernel(op, a, b, e)
     return field_op_plain(op, a, b, e)
+
+
+def batch_inverse_plain(x):
+    """K15 batch inverse's plain version: Montgomery's trick on (n, 33)
+    limbs as a product tree over `field_op_plain`, log2 of n (padded with
+    ones to a power of two) levels each way: the products up, one
+    inversion of the root, then each level's inverses from its parents'.
+    Canonical limbs; a zero element makes every output 0."""
+    n = x.shape[0]
+    m = 1 << (n - 1).bit_length()
+    one = torch.from_numpy(FR.to_mont(1)).to(x.device)
+    levels = [torch.cat([x, one.expand(m - n, N_LIMBS)])]
+    while levels[-1].shape[0] > 1:
+        t = levels[-1]
+        levels.append(field_op_plain("mul", t[0::2], t[1::2]))
+    inv = field_op_plain("inv", levels[-1])
+    for lvl in reversed(levels[:-1]):
+        k = inv.shape[0]
+        both = field_op_plain("mul", torch.cat([inv, inv]),
+                              torch.cat([lvl[1::2], lvl[0::2]]))
+        inv = torch.stack([both[:k], both[k:]], dim=1).reshape(lvl.shape)
+    return inv[:n]
+
+
+def batch_inverse(x, plain: bool = False):
+    """The inverses of the n elements of x (n, 33), canonical (all 0 if
+    one is 0): K15's batch inverse in one launch on a CUDA tensor, the
+    plain product tree otherwise."""
+    if _use_kernel(x, plain):
+        return K.batch_inverse_kernel(x)
+    return batch_inverse_plain(x)
 
 
 # --- K16 ------------------------------------------------------------------

@@ -25,7 +25,10 @@ from .field import N_LIMBS, R_MODULUS
 
 N_WORDS = 8            # 32-bit words of a kernel Fr
 R_KERNEL = 1 << 256    # the kernels' Montgomery R
-BLOCK = 256            # threads per block of every launch
+BLOCK = 256            # threads per block of K17's fold
+FFT_TILE = 128         # K18's tile T (`kFftTile`)
+FFT_CLASS_MAX = 512    # n / FFT_TILE, at most, for n > FFT_TILE
+INV_BLOCK = 256        # K15's batch inverse: threads a block (`kInvBlock`)
 
 # op name -> (code, inputs)
 FIELD_OPS = {"mul": (0, 2), "add": (1, 2), "sub": (2, 2), "inv": (3, 1),
@@ -57,9 +60,13 @@ _SIGNATURES = {
     "fr_barycentric_launch": [_p] * 5 + [_i32, _p, _p, _p],
     "fr_coset_interpolate_launch": [_p] * 3 + [_i32, _i32, _p, _p, _p],
     "fr_fft_launch": [_p] * 3 + [_i32, _i32, _p, _p, _p],
+    "fr_batch_inverse_launch": [_p, _i64, _p, _p, _p],
+    "fr_product_chain_launch": [_p, _i32, _p, _p],
 }
-_SCRATCH = {"fr_barycentric_scratch_bytes": 1, "fr_coset_scratch_bytes": 2,
-            "fr_fft_scratch_bytes": 2}
+_SCRATCH = {"fr_barycentric_scratch_bytes": [_i32],
+            "fr_coset_scratch_bytes": [_i32] * 2,
+            "fr_fft_scratch_bytes": [_i32] * 2,
+            "fr_batch_inverse_scratch_bytes": [_i64]}
 
 
 @functools.cache
@@ -68,8 +75,8 @@ def _lib_loaded():
     for f, args in _SIGNATURES.items():
         getattr(lib, f).argtypes = args
         getattr(lib, f).restype = _i32
-    for f, n in _SCRATCH.items():
-        getattr(lib, f).argtypes = [_i32] * n
+    for f, args in _SCRATCH.items():
+        getattr(lib, f).argtypes = args
         getattr(lib, f).restype = _i64
     return lib
 
@@ -134,6 +141,41 @@ def field_op_kernel(op: str, a: torch.Tensor, b=None, e: int = 0):
     return out
 
 
+def batch_inverse_kernel(x: torch.Tensor) -> torch.Tensor:
+    """K15's batch inverse: Montgomery's trick over x (n, 33) in one
+    cooperative launch, a thread an element, or a run of them where n
+    passes INV_BLOCK times its blocks (at most 256, all co-resident);
+    canonical (n, 33).  A zero element makes every output 0.  Counted as
+    K15's launch (`fr_field_ops`)."""
+    _limbs("x", x, (x.shape[0], N_LIMBS))
+    n = x.shape[0]
+    if n < 1:
+        raise ValueError(f"fr_batch_inverse: n {n}")
+    x = x.contiguous()
+    lib = lib_for(x.device)
+    scratch = _scratch(x.device, lib.fr_batch_inverse_scratch_bytes(n))
+    out = torch.empty_like(x)
+    _build.require_cuda("fr_batch_inverse", x, scratch, out)
+    _build.check(lib.fr_batch_inverse_launch(
+        x.data_ptr(), n, scratch.data_ptr(), out.data_ptr(),
+        _build.stream_ptr(x)), "fr_batch_inverse")
+    _build.launches["fr_field_ops"] += 1
+    return out
+
+
+def fr_product_chain(a: torch.Tensor, n: int) -> torch.Tensor:
+    """A probe, on no path: a^(2^n) (a: (33,) limbs) by n dependent Fr
+    products on one thread; its time over n is the product's latency.
+    Not counted in `launches`."""
+    _limbs("fr_product_chain", a, (N_LIMBS,))
+    out = torch.empty(N_LIMBS, dtype=torch.int32, device=a.device)
+    _build.require_cuda("fr_product_chain", a, out)
+    _build.check(lib_for(a.device).fr_product_chain_launch(
+        a.data_ptr(), int(n), out.data_ptr(), _build.stream_ptr(a)),
+        "fr_product_chain")
+    return out
+
+
 # --- K16 -------------------------------------------------------------------
 
 
@@ -194,9 +236,10 @@ def coset_interpolate_kernel(evals, idft, weights):
 def fft_kernel(x, roots, scale):
     """K18: the radix-2 DIT FFT of each row of x (batch, n, 33), given in
     bit-reversed order, over the domain `roots` (n, 33), times `scale`
-    (33,); canonical (batch, n, 33) in natural order."""
+    (33,); canonical (batch, n, 33) in natural order.  One launch where a
+    row fits the tile (n <= FFT_TILE), two otherwise."""
     batch, n = x.shape[0], x.shape[1]
-    if batch < 1 or n < 2 or n & (n - 1):
+    if batch < 1 or n < 2 or n & (n - 1) or n > FFT_TILE * FFT_CLASS_MAX:
         raise ValueError(f"fr_fft: batch {batch}, n {n}")
     for name, t, shape in (("x", x, (batch, n, 33)), ("roots", roots, (n, 33)),
                            ("scale", scale, (33,))):

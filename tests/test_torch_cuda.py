@@ -838,6 +838,104 @@ def test_fr_fft_kernel(dev, n, batch, inverse):
         [host(r, roots) for r in rows]
 
 
+@pytest.mark.parametrize("batch,n,inverse", [
+    (1, 8192, False), (1, 8192, True), (2, 8192, False), (1, 4096, True),
+    (64, 128, False), (1, 2, False), (1, "T", False), (1, "2T", True),
+    (3, "2T", False), (1, "max", False)])
+def test_fr_fft_kernel_shapes(dev, batch, n, inverse):
+    """K18 against its plain version at the paths' shapes, the tile's
+    edges (n = 2, T, 2T at T = `FFT_TILE`) and the largest n it takes."""
+    import random
+
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+    from consensus_specs_tpu_torch.ops.fr_batch import kernels as FK
+
+    T = FK.FFT_TILE
+    n = {"T": T, "2T": 2 * T, "max": T * FK.FFT_CLASS_MAX}.get(n, n)
+    R = FB.R_MODULUS
+    g = pow(7, (R - 1) // n, R)
+    roots = [pow(g, i, R) for i in range(n)]
+    rng = random.Random(n + batch)
+    rows = [[rng.randrange(R) for _ in range(n)] for _ in range(batch)]
+    args = tuple(torch.from_numpy(a).to(dev)
+                 for a in FB.fft_inputs(rows, roots, inverse))
+    before = _build.launches["fr_fft"]
+    got = FK.fft_kernel(*args)
+    torch.cuda.synchronize()
+    assert _build.launches["fr_fft"] == before + 1
+    assert torch.equal(got, FB.FR.canon(FB.fft(*args, plain=True)))
+
+
+def test_fr_inv_edges(dev):
+    """K15's `inv` (the binary inversion) on 0, 1, r - 1 and 2."""
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+
+    R = FB.R_MODULUS
+    x = torch.from_numpy(FB.FR.to_mont_batch([0, 1, R - 1, 2])).to(dev)
+    got = FB.field_op("inv", x)
+    assert torch.equal(got, FB.field_op("inv", x, plain=True))
+    assert FB.from_limbs(got) == [0, 1, R - 1, pow(2, R - 2, R)]
+
+
+@pytest.mark.parametrize("n,zero", [(1, False), (2, False), (8, False),
+                                    (1027, False), (8192, False),
+                                    (8192, True), (65539, False),
+                                    (65539, True)])
+def test_fr_batch_inverse_kernel(dev, n, zero):
+    """K15's batch inverse in one launch against its plain product tree
+    and the ints' inverses; a zero element makes every output 0.  Past
+    256 blocks of 256 threads (n = 65539) each thread takes a run."""
+    import random
+
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+    from consensus_specs_tpu_torch.ops.fr_batch import kernels as FK
+
+    R = FB.R_MODULUS
+    rng = random.Random(n)
+    vals = [rng.randrange(1, R) for _ in range(n)]
+    if zero:
+        vals[n // 2] = 0
+    x = torch.from_numpy(FB.FR.to_mont_batch(vals)).to(dev)
+    before = _build.launches["fr_field_ops"]
+    got = FK.batch_inverse_kernel(x)
+    torch.cuda.synchronize()
+    assert _build.launches["fr_field_ops"] == before + 1
+    assert torch.equal(got, FB.batch_inverse(x, plain=True))
+    assert FB.from_limbs(got) == ([0] * n if zero
+                                  else [pow(v, R - 2, R) for v in vals])
+
+
+def test_recovery_decode_launches(dev):
+    """The recovery's decode on the card: 6 K15 launches (5 products and
+    the batch inverse) and 4 K18, its coefficients equal to the plain
+    decode's."""
+    from consensus_specs_tpu_torch import convert as C
+    from consensus_specs_tpu_torch.das import recover as RC
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+
+    _, cells, _, _ = C.closed_form_blob()
+    keep = list(range(0, 128, 2))
+    rows = RC._cell_rows([cells[k] for k in keep])
+    _build.reset_launches()
+    got = RC._recover_coefficient_limbs(keep, rows, dev)
+    torch.cuda.synchronize()
+    assert _build.launches["fr_field_ops"] == 6
+    assert _build.launches["fr_fft"] == 4
+    want = RC._recover_coefficient_limbs(keep, rows, torch.device("cpu"))
+    assert torch.equal(got.cpu(), FB.FR.canon(want))
+
+
+def test_fr_product_chain(dev):
+    """The latency probe: a^(2^n) by n dependent products."""
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+    from consensus_specs_tpu_torch.ops.fr_batch import kernels as FK
+
+    a = torch.from_numpy(FB.FR.to_mont(7)).to(dev)
+    for n in (0, 1, 100):
+        assert FB.from_limbs(FK.fr_product_chain(a, n)) == \
+            [pow(7, 2**n, FB.R_MODULUS)]
+
+
 def test_kzg_das_and_cells_on_the_card(dev):
     """The three slice-5 paths at small size through the facade's default
     device: a Deneb KZG verify (K16, K12 -> K10), a DAS batch verify
