@@ -79,7 +79,8 @@ and PyTorch built for CUDA.  The script:
 12. PeerDAS `verify_cell_proof_batch` on `bench.py` worker_das's 128 x 8
    closed-form matrix (1024 cells): accepted through K17, K14 (LL, RLP),
    K13 (RL) and K12 -> K10, K17 equal to its plain version and the host
-   fold, a tampered cell rejected, a 16-cell sub-batch equal on the host
+   fold (and to its plain version at B = 16 and 128 and at B = 1024
+   with every input r - 1), a tampered cell rejected, a 16-cell sub-batch equal on the host
    route and isolated by `verify_and_isolate`, `evaluate_cells_at` (K16)
    equal to the host route; the stage split;
 13. fulu `compute_cells` of `bench.py`'s closed-form degree-65 blob
@@ -120,7 +121,11 @@ and PyTorch built for CUDA.  The script:
    blocks, 2**20 validators, batches of 16384) on seeded inputs with a
    repeated validator, padded rows, equivocators, the boost and a head
    decided by root words at the 2**31 boundary, K22 also against
-   `index_add_`; then three paths through `ProtoArrayStore` on the card
+   `index_add_`; K23 also on every case of `synthetic.head_inputs` (a
+   linear chain, a chain over the rung, a heavier branch without a
+   viable leaf, ties in the low word of the last pair) at NB = 64, 1024
+   and 16384 (its global-scratch route), its rounds and the empty
+   barrier phase's cost beside its time; then three paths through `ProtoArrayStore` on the card
    (`bench.py:897 worker_forkchoice`'s 256 x 16384 and 1024 x 262144
    with batches of 1024, and 1024 x 2**20 with batches of 16384), each 8
    batches followed by `get_head`, the head, accepted count and live
@@ -260,6 +265,8 @@ FC_PATHS = (("forkchoice_256x16384", 256, 16384, 1024),
             ("forkchoice_1024x262144", 1024, 262144, 1024),
             ("forkchoice_mainnet", 1024, 2**20, 16384))
 FC_BATCHES = 8
+FC_HEAD_RUNGS = (64, 1024, 16384)    # K23's checks: the ladder's rungs
+FC_PROBE_PHASES = 1000               # the empty barrier probe's phases
 # slice 8, the sharded paths on virtual meshes of the card (its device
 # listed D times, as the JAX tests force D host devices): K24 at 2**14
 # validators over 4 shards; K25 and K26 on 16 statements over 4 shards
@@ -2524,6 +2531,7 @@ def das_path(dev, record, int32_ops_per_s):
     host_fold_s = time.perf_counter() - t0
     if FB.from_limbs(k17) != host or trace["rli"] != host:
         raise AssertionError("K17's coefficients differ from the host fold")
+    k17_rungs, err17 = check_k17_rungs(dev, err17)
 
     # -- rejection, the host route and isolation on a sub-batch ---------------
     bad = list(cells)
@@ -2579,16 +2587,73 @@ def das_path(dev, record, int32_ops_per_s):
           f"host route, verify_and_isolate flags cell {DAS_BAD} "
           f"({isolate_s:.3f} s); evaluate_cells_at on {DAS_SUB} cells "
           f"equals the host route")
-    products = n * 64 * 64 + n * 64
-    nbytes = (2 * args[0].shape[0] * 64 + 64 * 64 + 64) * 132
+    rung = args[0].shape[0]
+    products = rung * 64 * 64 + rung * 64
+    nbytes = (2 * rung * 64 + 64 * 64 + 64) * 132
+    ops = k17_ops(rung, 64)
+    ops_ms = ops / int32_ops_per_s * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     record("fr_coset_interpolate",
            "consensus_specs_tpu_torch/csrc/fr_batch.cu",
            "consensus_specs_tpu/ops/fr_batch.py:315", err17, k17_ms, plain17,
-           *fr_bound(products, nbytes, int32_ops_per_s),
+           max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms
+           else "bytes", int32_ops=ops,
+           montgomery_bound_ms=fr_bound(products, nbytes,
+                                        int32_ops_per_s)[0],
            montgomery_products=products,
-           shape=f"{n} cells at rung {args[0].shape[0]}, width 64",
-           replaces_also=["consensus_specs_tpu/ops/fr_batch.py:396"])
+           shape=f"{n} cells at rung {rung}, width 64",
+           replaces_also=["consensus_specs_tpu/ops/fr_batch.py:396"],
+           **k17_rungs)
     return counts
+
+
+def k17_ops(B: int, W: int) -> int:
+    """int32 instructions of K17's design: the raw products of its sums,
+    B W^2 of them at 64 word products of 2 instructions (the low and the
+    high multiply-add), and for each (b, j) one reduction (about 80 word
+    products: the top word's fold, twice, and a Montgomery reduction) and
+    the weight's Montgomery product."""
+    return B * W * W * 64 * 2 + B * W * (80 * 2 + OPS_PER_FR_MONT)
+
+
+def check_k17_rungs(dev, err: int):
+    """K17 against its plain version at the DAS ladder's other rungs (B =
+    16, 128: 32 and 128 fold blocks) on seeded rows, and at B = 1024 with
+    every input r - 1, as a field element and as limbs of value r - 1 (the
+    fold's largest lazy sums).  Returns ({"ms_16": .., "ms_128": ..},
+    the largest error)."""
+    import torch
+
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+
+    R = FB.R_MODULUS
+    rng = np.random.RandomState(SEED + 17)
+
+    def rows(m):
+        return [[int.from_bytes(rng.bytes(32), "little") % R
+                 for _ in range(64)] for _ in range(m)]
+
+    out = {}
+    for b in (16, 128):
+        a = tuple(torch.from_numpy(t).to(dev) for t in
+                  FB.coset_interpolate_inputs(rows(b), rows(64), rows(b)))
+        err = max(err, require_equal(
+            f"fr_coset_interpolate B={b}", FB.coset_interpolate(*a),
+            FB.FR.canon(FB.coset_interpolate(*a, plain=True))))
+        out[f"ms_{b}"] = device_ms(lambda a=a: FB.coset_interpolate(*a), 20)
+    raw = torch.tensor([((R - 1) >> (12 * k)) & 0xFFF for k in range(33)],
+                       dtype=torch.int32)
+    for label, one in (("r - 1", torch.from_numpy(FB.FR.to_mont_batch(
+            [R - 1]))[0]), ("limbs of value r - 1", raw)):
+        ev = one.expand(1024, 64, 33).contiguous().to(dev)
+        m = one.expand(64, 64, 33).contiguous().to(dev)
+        err = max(err, require_equal(
+            f"fr_coset_interpolate every input {label}",
+            FB.coset_interpolate(ev, m, ev.clone()),
+            FB.FR.canon(FB.coset_interpolate(ev, m, ev.clone(), plain=True))))
+    print(f"fr_coset_interpolate at B = 16 and 128 ({out}) and at B = 1024 "
+          f"with every input r - 1: equal to the plain version")
+    return out, err
 
 
 def compute_cells_path(dev, record, int32_ops_per_s):
@@ -3618,17 +3683,49 @@ def check_fc_kernels(dev, record):
     if heads[2] != 4:
         raise AssertionError(f"fc_head: the root-word tie-break gave block "
                              f"{heads[2]}, not 4")
+    case_ms = {}
+    for nb_h in FC_HEAD_RUNGS:
+        for case in FS.HEAD_CASES:
+            h = _fc_tensors(FS.head_inputs(nb_h, case, seed=SEED), dev)
+            hargs = tuple(h.values())
+            got = FK.fc_head_kernel(*hargs)
+            err = max(err, require_equal(f"fc_head {case} NB={nb_h}", got,
+                                         FK.fc_head_plain(*hargs)))
+            got = int(got)
+            if (case in ("roots", "words") and got != 4) or (
+                    case == "non_viable" and got in (1, 3, 4)):
+                raise AssertionError(f"fc_head: case {case} at NB={nb_h} "
+                                     f"gave block {got}")
+            if (nb_h, case) in ((16384, "tree"), (1024, "full_chain")):
+                case_ms[f"ms_{case}_{nb_h}"] = device_ms(
+                    lambda a=hargs: FK.fc_head_kernel(*a), 20)
     args = (orig["parent"], orig["node_weight"], x["boost_idx"],
             x["boost_amt"], orig["real"], orig["block_epoch"], orig["je"],
             orig["uje"], orig["fin_ok"], orig["limbs"], x["sj"], x["sf"],
             x["cur"], x["justified_idx"])
+    stats = torch.zeros(3, dtype=torch.int32, device=dev)
+    FK.fc_head_kernel(*args, stats=stats)
+    sums, ties, doubling = stats.tolist()
+    phases = 2 + sums + 2 * ties + doubling
+    probe = {n: device_ms(lambda n=n: FK.fc_barrier_probe(n, dev), 20)
+             for n in (0, FC_PROBE_PHASES)}
+    phase_us = (probe[FC_PROBE_PHASES] - probe[0]) / FC_PROBE_PHASES * 1e3
     k23_bytes = (nb + 1) * (4 + 8 + 1 + 3 * 8 + 1 + 8 * 8) + 4
+    head_ms = device_ms(lambda: FK.fc_head_kernel(*args), 50)
+    print(f"fc_head: NB={nb} {head_ms:.6f} ms, rounds (sums, tie-break, "
+          f"doubling) {stats.tolist()}, {phases} dependent phases; an empty "
+          f"barrier phase of its block {phase_us:.4f} us; "
+          + ", ".join(f"{k} {v:.6f}" for k, v in case_ms.items())
+          + f"; every head case equal to the plain version at NB in "
+          f"{FC_HEAD_RUNGS}")
     record("fc_head", "consensus_specs_tpu_torch/csrc/forkchoice.cu",
-           "consensus_specs_tpu/forkchoice/kernels.py:148", err,
-           device_ms(lambda: FK.fc_head_kernel(*args), 50),
+           "consensus_specs_tpu/forkchoice/kernels.py:148", err, head_ms,
            device_ms(lambda: FK.fc_head_plain(*args), 10),
            k23_bytes / HBM_BYTES_PER_S * 1e3, "bytes",
-           bound_bytes=int(k23_bytes), shape=f"NB={nb}", heads=heads)
+           bound_bytes=int(k23_bytes), shape=f"NB={nb}", heads=heads,
+           rounds=stats.tolist(), phases=phases,
+           barrier_phase_us=phase_us,
+           phase_floor_ms=phases * phase_us * 1e-3, **case_ms)
     return library_ms
 
 

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Time the BLS kernels of config #2's batch, K16, the epoch step's
-kernels and the PeerDAS producer's G1 kernels on one CUDA card for one
-checkout of the port, so that two commits compare on one card:
+kernels, the PeerDAS kernels and the fork-choice kernels on one CUDA
+card for one checkout of the port, so that two commits compare on one
+card:
 
     python3 compare_kernels.py [--root DIR] [--label NAME] [--group G]
 
 It imports `consensus_specs_tpu_torch` from DIR (default: this script's
 directory), builds that checkout's libraries of the group (`bls`, `epoch`,
-`fr`, `g1fft`, `msm` or `all`, the default) with its own `_build`, and times, by
-CUDA events
+`fr`, `g1fft`, `msm`, `fc` or `all`, the default: `bls`, `epoch` and
+`g1fft`) with its own `_build`, and times, by CUDA events
 around each call with a sleep kernel ahead (`chip_smoke.py`'s `device_ms`,
 whose helpers and inputs it uses), in the `bls` group:
 
@@ -52,11 +53,21 @@ inputs and `convert.closed_form_blob()`'s:
 - the walls of the calls K18 and K15 sit in on the producer's path, on
   the host clock: FK20's `_fk20_proofs_device`, `compute_cells` and the
   producer `compute_cells_and_kzg_proofs` on that blob;
-- K16 at W = 4096 and K17 on 1024 cells of width 64, as controls;
+- K17 on 16, 128 and 1024 cells of width 64 (the DAS ladder's rungs);
+- K16 at W = 4096, as a control;
 - each call's CUDA launches and copies and their device time
   (torch.profiler, one call), and,
   where the checkout has it (`kernels.fr_product_chain`), the Fr
   product's latency on one thread, in us;
+
+and in the `fc` group (it builds `forkchoice`), on
+`forkchoice.synthetic.kernel_inputs` from `chip_smoke.py`'s SEED:
+
+- K23 on the seeded tree at NB = 1024 and 16384 (the large-rung route)
+  and on a linear chain of the live blocks at 1024, 50 calls each;
+- K21 and K22 on the mainnet batch (B = 16384, V = 2**20, NB = 1024), as
+  controls, K21's tables restored before each call;
+- each call's CUDA launches (torch.profiler, one call);
 
 and in the `g1fft` group, on `chip_smoke.py`'s inputs:
 
@@ -102,12 +113,17 @@ SOURCES = {"bls": ("bls_rlc", "bls_h2c", "bls_shard", "bls_pairing",
            "epoch": ("epoch_sweep", "sha256", "records_root", "incremental"),
            "fr": ("fr_batch", "g1_fft"),
            "g1fft": ("g1_fft", "fr_batch"),
-           "msm": ("bls_msm", "g1_fft")}
+           "msm": ("bls_msm", "g1_fft"),
+           "fc": ("forkchoice",)}
 SHARDS_K24 = 4
 # a call's set-up, run before it outside the timed events
 SETUPS = {}
 # a call's digest, where it is not `_digest` of its outputs
 DIGESTS = {}
+# a call's timed repetitions, where not REPS (the fork-choice kernels
+# take microseconds)
+REPS_FOR = {}
+FC_REPS = 50
 
 
 def _helpers():
@@ -327,12 +343,71 @@ def fr_calls(cs, dev) -> dict:
     args16 = on(FB.barycentric_inputs([rng.randrange(R) for _ in range(W)],
                                       domain, rng.randrange(R)))
     calls["fr_barycentric_4096"] = lambda: FB.barycentric(*args16)
-    B, Wd = 1024, 64
-    args17 = on(FB.coset_interpolate_inputs(
-        [[rng.randrange(R) for _ in range(Wd)] for _ in range(B)],
-        [[rng.randrange(R) for _ in range(Wd)] for _ in range(Wd)],
-        [[rng.randrange(R) for _ in range(Wd)] for _ in range(B)]))
-    calls["fr_coset_interpolate_1024"] = lambda: FB.coset_interpolate(*args17)
+    Wd = 64
+    for B in (16, 128, 1024):
+        args17 = on(FB.coset_interpolate_inputs(
+            [[rng.randrange(R) for _ in range(Wd)] for _ in range(B)],
+            [[rng.randrange(R) for _ in range(Wd)] for _ in range(Wd)],
+            [[rng.randrange(R) for _ in range(Wd)] for _ in range(B)]))
+        calls[f"fr_coset_interpolate_{B}"] = (
+            lambda a=args17: FB.coset_interpolate(*a))
+    return calls
+
+
+def fc_calls(cs, dev) -> dict:
+    """The fc group's calls {name: fn}: K23 on `kernel_inputs`' tree (SEED,
+    no boost) at NB = 1024 and 16384 and on the linear chain at 1024
+    (`synthetic.head_inputs`' "tree" and "chain"); K21 and K22, as
+    controls, on
+    `check_fc_kernels`' batch (B = 16384, V = 2**20, NB = 1024), K21's
+    tables restored before each call."""
+    import numpy as np
+    import torch
+
+    from consensus_specs_tpu_torch.forkchoice import kernels as FK
+    from consensus_specs_tpu_torch.forkchoice import synthetic as FS
+
+    def on(x):
+        return {k: (torch.from_numpy(np.array(v, copy=True)).to(dev)
+                    if isinstance(v, np.ndarray) else v) for k, v in x.items()}
+
+    def head(nb, chain):
+        # `synthetic.head_inputs`' "tree" and "chain" cases, from the
+        # `kernel_inputs` both checkouts have
+        x = FS.kernel_inputs(nb, 256, 64, seed=cs.SEED)
+        x["boost_idx"], x["boost_amt"] = nb, 0
+        if chain:
+            live = nb - nb // 8
+            x["parent"][1:live] = np.arange(live - 1, dtype=np.int32)
+            x["fin_ok"] = x["real"].copy()
+            x["je"] = np.where(x["real"], x["sj"], 0)
+            x["uje"] = x["je"].copy()
+        return tuple(on(x)[n] for n in (
+            "parent", "node_weight", "boost_idx", "boost_amt", "real",
+            "block_epoch", "je", "uje", "fin_ok", "limbs", "sj", "sf", "cur",
+            "justified_idx"))
+
+    calls = {}
+    for nb, case in ((1024, "tree"), (16384, "tree"), (1024, "chain")):
+        args = head(nb, case == "chain")
+        name = f"fc_head_{case}_{nb}"
+        calls[name] = lambda a=args: FK.fc_head_kernel(*a)
+        REPS_FOR[name] = FC_REPS
+    _, nb, nv, b = cs.FC_PATHS[-1]
+    x = FS.kernel_inputs(nb, nv, b, seed=cs.SEED)
+    k, orig = on(x), on(x)
+    names = ("val_idx", "att_epoch", "att_block", "lm_epoch", "lm_block",
+             "balance", "can_update", "node_weight")
+
+    def restore():
+        for n in ("lm_epoch", "lm_block", "node_weight"):
+            k[n].copy_(orig[n])
+
+    calls["fc_apply"] = lambda: FK.fc_apply_kernel(*(k[n] for n in names))
+    SETUPS["fc_apply"] = restore
+    calls["fc_refresh"] = lambda: FK.fc_refresh_kernel(
+        orig["lm_block"], orig["balance"], nb)
+    REPS_FOR["fc_apply"] = REPS_FOR["fc_refresh"] = FC_REPS
     return calls
 
 
@@ -435,7 +510,7 @@ def main() -> int:
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--label", default="")
     ap.add_argument("--group", choices=("bls", "epoch", "fr", "g1fft",
-                                        "msm", "all"),
+                                        "msm", "fc", "all"),
                     default="all")
     args = ap.parse_args()
     root = Path(args.root).resolve()
@@ -469,6 +544,8 @@ def main() -> int:
         calls.update(msm_group_calls(cs, dev))
     if "fr" in groups:
         calls.update(fr_calls(cs, dev))
+    if "fc" in groups:
+        calls.update(fc_calls(cs, dev))
 
     ms, digests, launches = {}, {}, {}
     for name, fn in calls.items():
@@ -476,8 +553,10 @@ def main() -> int:
         if setup:
             setup()
         digests[name] = DIGESTS.get(name, _digest)(fn())
-        ms[name] = cs.device_ms(fn, REPS, setup)
-        if "fr" in groups:
+        ms[name] = cs.device_ms(fn, REPS_FOR.get(name, REPS), setup)
+        if "fr" in groups or "fc" in groups:
+            if setup:
+                setup()
             launches[name] = cuda_launches(cs, fn)
     if any(g in groups for g in ("bls", "g1fft", "msm")):
         from consensus_specs_tpu_torch.ops.bls_batch import kernels as K

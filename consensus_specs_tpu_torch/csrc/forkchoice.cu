@@ -38,18 +38,42 @@
 // one padded rung.  Each round of pointer jumping reads the whole array
 // before any of it is written, so the phases need barriers across the
 // rung: the kernel is one block of FC_HEAD_THREADS threads striding over
-// the rung, with __syncthreads() between phases and double buffers in a
-// global scratch (subtree sums s, the viability bits v, the ancestor
-// pointers p, the best-child pointers bc).  The subtree sums and the
-// viability doubling share their pointer sequence, so they run in the
-// same rounds.  Bound: bytes, about 110 a block read; the time is the
-// latency of about 4 * log2(rung) + 30 barrier phases.
+// the rung's NB live-or-padded slots (the dummy slot NB is constant and
+// left out), its arrays (HeadArrays, kHeadSlotBytes a slot) in shared
+// memory where they fit (NB <= 4096 on an H100) and in a global scratch
+// past that (the same code; 16384 and up: 672 KB, past one SM's shared
+// memory).  Its phases:
+//   1. the boosted weights, the pointers, the leaf predicate, the live
+//      rows (the only reads of the inputs but the root words); 2. has_child;
+//   3. rounds of pointer jumping, one phase each: each slot adds its
+//      subtree sum into its pointer's deltas (the rounds' only atomics;
+//      a slot's next sum is its own plus its deltas, taken a round
+//      later), ORs its viability into its pointer's, and jumps; deltas
+//      and pointers double-buffered, v triple-buffered; the rounds end
+//      once every pointer is the dummy slot (later rounds add nothing);
+//   4. the tie-break of each parent's viable children: the subtree sum
+//      (plus one, so that JAX's -1 floor is the unsigned 0; a sum below
+//      -1 never survives), then the 8 root words in four rounds of two,
+//      packed big-endian into one unsigned 64-bit key (read for the
+//      round's candidates only); two phases a round (max, then survive),
+//      mx double-buffered; each survivor writes itself as its parent's
+//      best child, and the rounds end once no parent has two survivors;
+//   5. best-child doubling until every new pointer is a fixpoint.
+// The early exits give the same output as JAX's fixed rounds.  Bound:
+// bytes (about 110 a block read); the time is the launch and the latency
+// of the dependent phases, 2 + log2(depth) + 2 a tie-break round +
+// log2(chain) on a tree, 14-16 at NB = 1024 on the smoke's (an empty
+// phase of the block: about 0.05 us on an H100, its launch about 5 us).
+// The rounds' 64-bit shared atomics are the compiler's compare-and-swap
+// loops (Hopper has no 64-bit shared atomic add or max); two 32-bit adds
+// with the carry, or a CAS loop of our own, were slower.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+// K23's block, chosen by timing 256, 512 and 1024 at NB = 1024 (PERF.md)
 #ifndef FC_HEAD_THREADS
-#define FC_HEAD_THREADS 1024
+#define FC_HEAD_THREADS 512
 #endif
 
 namespace {
@@ -128,35 +152,55 @@ __global__ void fc_refresh_kernel(const int* __restrict__ lm_block,
 
 // --- K23 -------------------------------------------------------------------
 
-// The scratch of one rung of n = nb_pad + 1 slots, 8-byte arrays first.
-struct HeadScratch {
-  long long *s0, *s1, *mx;
-  int *p0, *p1, *v0, *v1, *has_child, *bc0, *bc1;
+// The arrays of one rung of n slots, 8-byte ones first: the subtree sums
+// (each slot's own, later the tie-break's keys) and the two buffers of
+// the deltas they take from their descendants (later the tie-break's two
+// mx buffers), the pointers' two (later the survivor counts and the first
+// best-child buffer; the second is mx's), the parents, the viability's
+// three, the candidates (first has_child) and the live rows.
+constexpr int kHeadSlotBytes = 3 * 8 + 3 * 4 + 3 + 1 + 1;
+constexpr int kMaxShared = 232448;
+constexpr int kMaxDevices = 64;
+
+struct HeadArrays {
+  long long* sum;
+  long long* d[2];
+  int* p[2];
+  int* par;
+  unsigned char* v[3];
   unsigned char* cand;
+  unsigned char* live;
 };
 
-__device__ HeadScratch head_scratch(void* base, int n) {
-  HeadScratch h;
+__device__ __forceinline__ HeadArrays head_arrays(unsigned char* base, int n) {
+  HeadArrays h;
   long long* q = (long long*)base;
-  h.s0 = q;
-  h.s1 = q + n;
-  h.mx = q + 2 * (long long)n;
-  int* r = (int*)(q + 3 * (long long)n);
-  h.p0 = r;
-  h.p1 = r + n;
-  h.v0 = r + 2 * (long long)n;
-  h.v1 = r + 3 * (long long)n;
-  h.has_child = r + 4 * (long long)n;
-  h.bc0 = r + 5 * (long long)n;
-  h.bc1 = r + 6 * (long long)n;
-  h.cand = (unsigned char*)(r + 7 * (long long)n);
+  h.sum = q;
+  h.d[0] = q + n;
+  h.d[1] = q + 2LL * n;
+  int* r = (int*)(q + 3LL * n);
+  h.p[0] = r;
+  h.p[1] = r + n;
+  h.par = r + 2LL * n;
+  unsigned char* c = (unsigned char*)(r + 3LL * n);
+  for (int k = 0; k < 3; ++k) h.v[k] = c + (long long)k * n;
+  h.cand = c + 3LL * n;
+  h.live = c + 4LL * n;
   return h;
 }
 
-long long head_scratch_bytes(int n) { return (long long)n * (3 * 8 + 7 * 4 + 1); }
+long long head_bytes(int n) { return (long long)n * kHeadSlotBytes; }
+
+// the root words 2k - 2 and 2k - 1 of block i, big-endian, as one key
+__device__ __forceinline__ unsigned long long word_pair(const long long* limbs,
+                                                        int i, int k) {
+  const long long* w = limbs + 8LL * i + 2 * k - 2;
+  return ((unsigned long long)(unsigned)w[0] << 32) | (unsigned)w[1];
+}
 
 #define FOR_EACH(i, n) for (int i = threadIdx.x; i < (n); i += blockDim.x)
 
+template <bool kShared>
 __global__ void __launch_bounds__(FC_HEAD_THREADS)
 fc_head_kernel(const int* __restrict__ parent, const long long* __restrict__ weight,
                int boost_idx, long long boost_amt, const bool* __restrict__ real,
@@ -164,93 +208,179 @@ fc_head_kernel(const int* __restrict__ parent, const long long* __restrict__ wei
                const long long* __restrict__ je, const long long* __restrict__ uje,
                const bool* __restrict__ fin_ok, const long long* __restrict__ limbs,
                long long sj, long long sf, long long cur, int justified_idx,
-               int nb_pad, int rounds, void* scratch, int* __restrict__ out) {
+               int nb_pad, int rounds, unsigned char* scratch, int* __restrict__ out,
+               int* __restrict__ stats) {
+  extern __shared__ __align__(16) unsigned char fc_smem[];
   const int n = nb_pad + 1;
-  HeadScratch h = head_scratch(scratch, n);
-  long long *s = h.s0, *s_nxt = h.s1;
-  int *p = h.p0, *p_nxt = h.p1, *v = h.v0, *v_nxt = h.v1;
+  const HeadArrays h = head_arrays(kShared ? fc_smem : scratch, n);
 
-  // the boosted weights of the live rows; the ancestor pointers
-  FOR_EACH(i, n) {
-    long long w = weight[i] + (i == boost_idx ? boost_amt : 0);
-    s[i] = real[i] ? w : 0;
-    p[i] = parent[i];
-    h.has_child[i] = 0;
+  // The dummy slot (index nb_pad) is a padded row, its own parent and not
+  // live: its sum and viability stay 0 (nothing adds into it) and its
+  // pointers nb_pad, so the phases leave it out and thread 0 writes it
+  // once.
+  if (threadIdx.x == 0) {
+    h.sum[nb_pad] = h.d[0][nb_pad] = h.d[1][nb_pad] = 0;
+    for (int k = 0; k < 3; ++k) h.v[k][nb_pad] = 0;
+    h.p[0][nb_pad] = h.p[1][nb_pad] = h.par[nb_pad] = nb_pad;
+    h.cand[nb_pad] = h.live[nb_pad] = 0;
+  }
+
+  // 1. the boosted weights of the live rows, the pointers, the leaf
+  // predicate but has_child; the first round's targets zeroed
+  FOR_EACH(i, nb_pad) {
+    // every load first and unconditional, so that they overlap
+    const int pi = parent[i];
+    const unsigned long long wi = (unsigned long long)weight[i];
+    const long long be = block_epoch[i], u = uje[i], j = je[i];
+    const bool fin = fin_ok[i], live = real[i];
+    const long long w = (long long)(wi + (i == boost_idx ? (unsigned long long)boost_amt : 0));
+    const long long vs = be < cur ? u : j;
+    const bool vs_ok = sj == 0 || vs == sj || vs + 2 >= cur;
+    h.sum[i] = live ? w : 0;
+    h.d[0][i] = h.d[1][i] = 0;
+    h.p[0][i] = pi;
+    h.par[i] = pi;
+    h.v[0][i] = vs_ok && (sf == 0 || fin) && live;
+    h.v[1][i] = 0;
+    h.cand[i] = 0;
+    h.live[i] = live;
   }
   __syncthreads();
-  FOR_EACH(i, n) {
-    if (real[i]) h.has_child[parent[i]] = 1;
-  }
-  __syncthreads();
-  // leaf viability: the voting source and the finalized descent, on
-  // leaves only
-  FOR_EACH(i, n) {
-    long long vs = block_epoch[i] < cur ? uje[i] : je[i];
-    bool vs_ok = sj == 0 || vs == sj || vs + 2 >= cur;
-    bool f_ok = sf == 0 || fin_ok[i];
-    v[i] = (vs_ok && f_ok && real[i] && h.has_child[i] == 0) ? 1 : 0;
+  // 2. has_child (racing writers all store 1)
+  FOR_EACH(i, nb_pad) {
+    if (h.live[i]) h.cand[h.par[i]] = 1;
   }
   __syncthreads();
 
-  // subtree sums s += scatter(s -> p) and subtree-OR of the viable
-  // leaves, p = p[p]: each round reads s, v and p, writes the other
-  // buffers.  Additions into the dummy slot are skipped, so it stays 0.
-  for (int r = 0; r < rounds; ++r) {
-    FOR_EACH(i, n) {
-      s_nxt[i] = s[i];
-      v_nxt[i] = v[i];
-      p_nxt[i] = p[p[i]];
-    }
-    __syncthreads();
-    FOR_EACH(i, n) {
-      int t = p[i];
+  // 3. s_(r+1) = s_r + scatter(s_r -> p_r), v likewise with OR, p_(r+1) =
+  // p_r[p_r].  Only the scatter is atomic: round r adds s_r into the
+  // deltas d_r at the pointers (never the dummy slot), and each slot
+  // takes s_(r+1) = s_r + d_r as its own, one round later.
+  int r = 0;
+  for (;;) {
+    long long* d = h.d[r % 2];
+    long long* d_last = h.d[(r + 1) % 2];
+    unsigned char* v = h.v[r % 3];
+    unsigned char* v_nxt = h.v[(r + 1) % 3];
+    const int* p = h.p[r % 2];
+    int more = 0;
+    FOR_EACH(i, nb_pad) {
+      const long long si = (long long)((unsigned long long)h.sum[i] +
+                                       (unsigned long long)d_last[i]);
+      h.sum[i] = si;
+      d_last[i] = 0;                      // the next round's deltas
+      const bool vi = r == 0 ? v[i] && !h.cand[i] : v[i] != 0;
+      const int t = p[i];
+      if (vi) v_nxt[i] = 1;
       if (t != nb_pad) {
-        if (s[i] != 0) add_i64(&s_nxt[t], s[i]);
-        if (v[i] != 0) v_nxt[t] = 1;
+        if (si != 0) atomicAdd((unsigned long long*)&d[t], (unsigned long long)si);
+        if (vi) v_nxt[t] = 1;
       }
+      const int tt = p[t];
+      h.p[(r + 1) % 2][i] = tt;
+      more |= tt != nb_pad;
+      h.v[(r + 2) % 3][i] = 0;
     }
-    __syncthreads();
-    long long* ts = s; s = s_nxt; s_nxt = ts;
-    int* tp = p; p = p_nxt; p_nxt = tp;
-    int* tv = v; v = v_nxt; v_nxt = tv;
+    ++r;
+    if (!__syncthreads_or(more) || r == rounds) break;
   }
+  const unsigned char* v = h.v[r % 3];
 
-  // the best child of each parent: a masked argmax over the subtree sum,
-  // then over each of the 8 root words (zero-extended, big-endian)
-  FOR_EACH(i, n) {
-    h.cand[i] = real[i] && v[i] > 0 && parent[i] < nb_pad;
+  // 4. the tie-break: round 0 on the subtree sum, rounds 1-4 on the word
+  // pairs, each round's key kept in sum (own slots only) for its second
+  // phase; mx[0] is the delta buffer the last sum round zeroed, mx[1] its
+  // deltas, zeroed once read
+  unsigned long long* mx[2] = {(unsigned long long*)h.d[r % 2],
+                               (unsigned long long*)h.d[(r + 1) % 2]};
+  unsigned long long* key = (unsigned long long*)h.sum;
+  int* cnt = h.p[r % 2];
+  int* bc = h.p[(r + 1) % 2];
+  FOR_EACH(i, nb_pad) {
+    const unsigned long long su = (unsigned long long)h.sum[i] + mx[1][i];
+    const long long si = (long long)su;
+    const bool c = h.live[i] && v[i] && h.par[i] < nb_pad && si >= -1;
+    h.cand[i] = c;
+    key[i] = su + 1;
+    if (c) atomicMax(&mx[0][h.par[i]], su + 1);
+    mx[1][i] = 0;
+    cnt[i] = 0;
+    bc[i] = i;
   }
-  for (int k = 0; k < 9; ++k) {
-    FOR_EACH(i, n) h.mx[i] = -1;
-    __syncthreads();
-    FOR_EACH(i, n) {
-      if (h.cand[i]) atomicMax(&h.mx[parent[i]], k == 0 ? s[i] : limbs[8LL * i + k - 1]);
+  __syncthreads();
+  int k = 0;
+  for (;;) {
+    int tie = 0;
+    FOR_EACH(i, nb_pad) {
+      if (!h.cand[i]) continue;
+      const int pi = h.par[i];
+      if (key[i] != mx[k % 2][pi]) {
+        h.cand[i] = 0;
+        continue;
+      }
+      tie |= atomicAdd(&cnt[pi], 1) != 0;
+      bc[pi] = i;
     }
-    __syncthreads();
-    FOR_EACH(i, n) {
+    if (!__syncthreads_or(tie) || k == 4) break;
+    ++k;
+    FOR_EACH(i, nb_pad) {
       if (h.cand[i]) {
-        long long key = k == 0 ? s[i] : limbs[8LL * i + k - 1];
-        h.cand[i] = key == h.mx[parent[i]];
+        key[i] = word_pair(limbs, i, k);
+        atomicMax(&mx[k % 2][h.par[i]], key[i]);
       }
+      mx[(k + 1) % 2][i] = 0;
+      cnt[i] = 0;
     }
     __syncthreads();
   }
 
-  // best_child (a node without a viable child points at itself), then
-  // the head as the fixpoint of doubling from the justified block
-  int *bc = h.bc0, *bc_nxt = h.bc1;
-  FOR_EACH(i, n) bc[i] = i;
-  __syncthreads();
-  FOR_EACH(i, n) {
-    if (h.cand[i]) bc[parent[i]] = i;
-  }
-  __syncthreads();
-  for (int r = 0; r < rounds; ++r) {
-    FOR_EACH(i, n) bc_nxt[i] = bc[bc[i]];
-    __syncthreads();
+  // 5. the head: the fixpoint of doubling on best_child from the
+  // justified block; a round ends the doubling once every new pointer is
+  // a fixpoint of the old ones (and so of the new)
+  int* bc_nxt = (int*)mx[0];
+  int q = 0;
+  while (q < rounds) {
+    int more = 0;
+    FOR_EACH(i, nb_pad) {
+      const int x = bc[bc[i]];
+      bc_nxt[i] = x;
+      more |= bc[x] != x;
+    }
     int* t = bc; bc = bc_nxt; bc_nxt = t;
+    ++q;
+    if (!__syncthreads_or(more)) break;
   }
-  if (threadIdx.x == 0) *out = bc[justified_idx];
+  if (threadIdx.x == 0) {
+    *out = bc[justified_idx];
+    if (stats) {                          // the rounds each step ran
+      stats[0] = r;
+      stats[1] = k + 1;
+      stats[2] = q;
+    }
+  }
+}
+
+// n empty barrier phases of K23's block: their time over n is the cost of
+// one of K23's dependent phases before its work
+__global__ void __launch_bounds__(FC_HEAD_THREADS)
+fc_barrier_probe_kernel(int n, int* __restrict__ out) {
+  int acc = 0;
+  for (int i = 0; i < n; ++i) acc += __syncthreads_or(threadIdx.x == (unsigned)(i & 31));
+  if (threadIdx.x == 0) *out = acc;
+}
+
+// the shared-memory route's opt-in, once a device and size
+int head_allowed[kMaxDevices];
+
+int head_allow_shared(size_t shm) {
+  int dev = 0;
+  int err = cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (head_allowed[dev] >= (int)shm) return 0;
+  err = cudaFuncSetAttribute(fc_head_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
+  if (!err) head_allowed[dev] = (int)shm;
+  return err;
 }
 
 }  // namespace
@@ -283,7 +413,11 @@ extern "C" int fc_refresh_launch(const void* lm_block, const void* balance, long
   return (int)cudaGetLastError();
 }
 
-extern "C" long long fc_head_scratch_bytes(int n) { return head_scratch_bytes(n); }
+// the global scratch of the large-rung route; 0 where the rung fits
+// shared memory
+extern "C" long long fc_head_scratch_bytes(int n) {
+  return head_bytes(n) <= kMaxShared ? 0 : head_bytes(n);
+}
 
 extern "C" int fc_head_launch(const void* parent, const void* weight, int boost_idx,
                               long long boost_amt, const void* real,
@@ -291,11 +425,26 @@ extern "C" int fc_head_launch(const void* parent, const void* weight, int boost_
                               const void* fin_ok, const void* limbs, long long sj,
                               long long sf, long long cur, int justified_idx,
                               int nb_pad, int rounds, void* scratch, void* out,
-                              void* stream) {
-  fc_head_kernel<<<1, FC_HEAD_THREADS, 0, (cudaStream_t)stream>>>(
+                              void* stats, void* stream) {
+  const long long shm = head_bytes(nb_pad + 1);
+  const bool shared = shm <= kMaxShared;
+  if (shared) {
+    const int err = head_allow_shared((size_t)shm);
+    if (err) return err;
+  } else if (scratch == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = shared ? fc_head_kernel<true> : fc_head_kernel<false>;
+  kernel<<<1, FC_HEAD_THREADS, shared ? (size_t)shm : 0, (cudaStream_t)stream>>>(
       (const int*)parent, (const long long*)weight, boost_idx, boost_amt,
       (const bool*)real, (const long long*)block_epoch, (const long long*)je,
       (const long long*)uje, (const bool*)fin_ok, (const long long*)limbs, sj, sf,
-      cur, justified_idx, nb_pad, rounds, scratch, (int*)out);
+      cur, justified_idx, nb_pad, rounds, (unsigned char*)scratch, (int*)out,
+      (int*)stats);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fc_barrier_probe_launch(int n, void* out, void* stream) {
+  fc_barrier_probe_kernel<<<1, FC_HEAD_THREADS, 0, (cudaStream_t)stream>>>(n, (int*)out);
   return (int)cudaGetLastError();
 }

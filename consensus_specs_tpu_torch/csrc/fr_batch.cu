@@ -28,11 +28,19 @@
 //                             two scale products.
 //   K17 fr_coset_interpolate  fr_batch.py:315 _coset_interpolate_kernel:
 //                             S_j = sum_b w[b, j] sum_i e[b, i] M[i, j].
-//                             A conversion launch puts the three inputs in
-//                             Montgomery words; a thread per (b, j) forms
-//                             its inner sum and weight, a block sums its
-//                             256 / W rows per j; one thread per j sums the
-//                             blocks.  Padded rows carry weight 0.
+//                             Two launches.  A load launch stages the
+//                             three inputs' limbs in shared memory and
+//                             packs each into its value x 2^396 mod r
+//                             (word planes, no product for canonical
+//                             limbs).  Then a fold launch: a block a tile
+//                             of rows b, columns j and inner indices i,
+//                             its M and e tiles in shared memory; a
+//                             thread a row of one column, its inner sum
+//                             taken lazily as raw 512-bit products
+//                             (8 x 8 word products, the carries counted
+//                             apart) and reduced once, then weighted; the
+//                             block sums its rows, and the last block to
+//                             finish sums the blocks' partials.
 //   K18 fr_fft                fr_batch.py:417 _fr_fft_kernel: the radix-2
 //                             DIT FFT of a batch of rows given in
 //                             bit-reversed order, natural-order out, times
@@ -67,9 +75,11 @@
 // many SMs as it can fill.  K16's lanes each run the binary inversion
 // (`mont_inv_binary`, 512 branch-free steps of word additions and shifts,
 // in place of a 418-product Fermat chain) on 32-thread blocks; K17's
-// threads 65 products; K18 one product a stage a butterfly, log2 n stages
-// in one or two launches (the first version launched once a stage, log2 n
-// + 3 launches, through device memory); the batch inverse's chain is the
+// threads the raw products of their sums (a product's 64 word products,
+// but not its reduction) and one reduction an output; K18
+// one product a stage a butterfly, log2 n stages in one or two launches
+// (the first version launched once a stage, log2 n + 3 launches, through
+// device memory); the batch inverse's chain is the
 // heaps' depth both ways and the one inversion.  Every launcher returns
 // the first non-zero cudaGetLastError() of its launches.
 
@@ -95,6 +105,13 @@ constexpr int kFftTile = 128;     // K18's T: elements of a row a block holds
 constexpr int kFftThreads = 128;  // K18's tile block
 constexpr int kFftClass = 128;    // K18's class block
 constexpr int kFftClassPer = 4;   // K18's class elements a thread, at most
+constexpr int kCosetLoad = 256;   // K17's load block: elements a block
+constexpr int kCosetThreads = 512;  // K17's fold block
+constexpr int kCosetWidth = 256;  // K17's W, at most
+constexpr int kCosetCols = 32;    // its column tile, at most
+constexpr int kCosetInner = 64;   // its inner tile, at most
+constexpr int kCosetMinInner = 4; // its inner tile, at least (W permitting)
+constexpr int kCosetFill = 128;   // fold blocks aimed at: about one an SM
 constexpr int kMaxShared = 232448;
 constexpr int kMaxDevices = 64;
 
@@ -298,14 +315,6 @@ __global__ void fr_product_chain_kernel(const int32_t* __restrict__ a, int n,
   store_fr(out, x);
 }
 
-// boundary limbs -> Montgomery words, n elements
-__global__ void __launch_bounds__(kBlock)
-fr_load_kernel(const int32_t* __restrict__ src, int64_t n,
-               Fr* __restrict__ dst) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) load_fr(dst[i], src + i * FR_NL);
-}
-
 // sum of s[0 .. blockDim) into s[0], blockDim a power of two
 __device__ __forceinline__ void block_sum(Fr* s) {
   for (int h = blockDim.x / 2; h > 0; h >>= 1) {
@@ -372,45 +381,301 @@ fr_barycentric_finish_kernel(const Fr* __restrict__ partial, int n_parts,
 
 // --- K17 -------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kBlock)
-fr_coset_fold_kernel(const Fr* __restrict__ ev, const Fr* __restrict__ M,
-                     const Fr* __restrict__ wt, int B, int Wd,
-                     Fr* __restrict__ partial) {
-  __shared__ Fr s[kBlock];
-  const int j = threadIdx.x % Wd, row = threadIdx.x / Wd;
-  const int rows = blockDim.x / Wd;
-  const int b = blockIdx.x * rows + row;
-  Fr acc;
-  fr_zero(acc);
-  if (b < B) {
-    const Fr* e = ev + (int64_t)b * Wd;
-    for (int i = 0; i < Wd; ++i) {
-      Fr p;
-      fr_mul(p, e[i], M[i * Wd + j]);
-      fr_add(acc, acc, p);
-    }
-    fr_mul(acc, acc, wt[(int64_t)b * Wd + j]);
+// boundary limbs -> their value x 2^396 mod r, canonical: the packed words
+// reduced where the limbs' value lies in [0, 2^256) (canonical limbs: no
+// product), else a load and a product by c_out
+__device__ __forceinline__ void fr_packed(Fr& out, const int32_t* src) {
+  uint32_t w[MONT_LW];
+  const int64_t carry = mont_pack(w, src);
+  uint32_t high = (uint32_t)carry | (uint32_t)(carry >> 32);
+#pragma unroll
+  for (int j = FR_NW; j < MONT_LW; ++j) high |= w[j];
+  if (high == 0) {
+    mont_reduce_once(out, w, 0);          // < 2^256 < 3r
+    mont_reduce_once(out, out.w, 0);
+    return;
   }
-  s[threadIdx.x] = acc;
-  __syncthreads();
-  for (int h = rows / 2; h > 0; h >>= 1) {
-    if (row < h) fr_add(s[threadIdx.x], s[threadIdx.x],
-                        s[threadIdx.x + h * Wd]);
-    __syncthreads();
-  }
-  if (row == 0) partial[(int64_t)blockIdx.x * Wd + j] = s[threadIdx.x];
+  Fr c;
+  load_fr_call(out, src);
+  mont_from_const(c, FRC.c_out);
+  fr_mul_call(out, out, c);
 }
 
-__global__ void __launch_bounds__(kBlock)
-fr_coset_finish_kernel(const Fr* __restrict__ partial, int n_parts, int Wd,
-                       int32_t* __restrict__ out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= Wd) return;
+// acc (16 words) += a b, the carry out of each row's chain counted in cy
+// (cy[m] at word m + 8): a row is 8 multiply-adds of the low halves and
+// 8 of the high halves, each one PTX carry chain (which ptxas turns into
+// an IMAD and an IADD3.X a word product); no reduction a product.
+__device__ __forceinline__ void lazy_mad(uint32_t* acc, uint32_t* cy,
+                                         const uint32_t* a, const uint32_t* b) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    asm("mad.lo.cc.u32 %0, %9, %10, %0;\n\t"
+        "madc.lo.cc.u32 %1, %9, %11, %1;\n\t"
+        "madc.lo.cc.u32 %2, %9, %12, %2;\n\t"
+        "madc.lo.cc.u32 %3, %9, %13, %3;\n\t"
+        "madc.lo.cc.u32 %4, %9, %14, %4;\n\t"
+        "madc.lo.cc.u32 %5, %9, %15, %5;\n\t"
+        "madc.lo.cc.u32 %6, %9, %16, %6;\n\t"
+        "madc.lo.cc.u32 %7, %9, %17, %7;\n\t"
+        "addc.u32 %8, %8, 0;"
+        : "+r"(acc[i]), "+r"(acc[i + 1]), "+r"(acc[i + 2]), "+r"(acc[i + 3]),
+          "+r"(acc[i + 4]), "+r"(acc[i + 5]), "+r"(acc[i + 6]),
+          "+r"(acc[i + 7]), "+r"(cy[i])
+        : "r"(a[i]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]),
+          "r"(b[5]), "r"(b[6]), "r"(b[7]));
+    asm("mad.hi.cc.u32 %0, %9, %10, %0;\n\t"
+        "madc.hi.cc.u32 %1, %9, %11, %1;\n\t"
+        "madc.hi.cc.u32 %2, %9, %12, %2;\n\t"
+        "madc.hi.cc.u32 %3, %9, %13, %3;\n\t"
+        "madc.hi.cc.u32 %4, %9, %14, %4;\n\t"
+        "madc.hi.cc.u32 %5, %9, %15, %5;\n\t"
+        "madc.hi.cc.u32 %6, %9, %16, %6;\n\t"
+        "madc.hi.cc.u32 %7, %9, %17, %7;\n\t"
+        "addc.u32 %8, %8, 0;"
+        : "+r"(acc[i + 1]), "+r"(acc[i + 2]), "+r"(acc[i + 3]),
+          "+r"(acc[i + 4]), "+r"(acc[i + 5]), "+r"(acc[i + 6]),
+          "+r"(acc[i + 7]), "+r"(acc[i + 8]), "+r"(cy[i + 1])
+        : "r"(a[i]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]),
+          "r"(b[5]), "r"(b[6]), "r"(b[7]));
+  }
+}
+
+// V = acc + sum cy[m] 2^(32 (m + 8)), a sum of at most 2^31 products of
+// values below 2^256 -> V 2^-256 mod r, canonical.  The word above 2^512
+// is folded in twice as its multiple of c_top = 2^512 mod r (the second
+// time a bit at most), leaving V < 2^512; a Montgomery reduction then
+// gives (V + m r) / 2^256 < 2^256 + r < 4r, and three conditional
+// subtractions the canonical value.
+__device__ __noinline__ void lazy_reduce(Fr& out, const uint32_t* acc,
+                                         const uint32_t* cy) {
+  uint32_t v[17];
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = acc[j];
+#pragma unroll
+  for (int j = 8; j < 16; ++j) {
+    c += (uint64_t)acc[j] + cy[j - 8];
+    v[j] = (uint32_t)c;
+    c >>= 32;
+  }
+  v[16] = (uint32_t)c + cy[8];
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+    const uint32_t h = v[16];
+    c = 0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      c += (uint64_t)v[j] + (j < 8 ? (uint64_t)h * FRC.c_top[j] : 0);
+      v[j] = (uint32_t)c;
+      c >>= 32;
+    }
+    v[16] = (uint32_t)c;
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const uint32_t m = v[k] * FRC.n0;
+    c = 0;
+#pragma unroll
+    for (int j = 0; j < 17 - k; ++j) {
+      c += (uint64_t)v[k + j] + (j < 8 ? (uint64_t)m * FRC.mod[j] : 0);
+      v[k + j] = (uint32_t)c;
+      c >>= 32;
+    }
+  }
+#pragma unroll
+  for (int pass = 0; pass < 3; ++pass) {
+    uint32_t d[9], borrow = 0;
+#pragma unroll
+    for (int j = 0; j < 9; ++j) {
+      const uint64_t t = (uint64_t)v[8 + j] - (j < 8 ? FRC.mod[j] : 0) - borrow;
+      d[j] = (uint32_t)t;
+      borrow = (uint32_t)(t >> 63);
+    }
+#pragma unroll
+    for (int j = 0; j < 9; ++j) v[8 + j] = borrow ? v[8 + j] : d[j];
+  }
+#pragma unroll
+  for (int j = 0; j < FR_NW; ++j) out.w[j] = v[8 + j];
+}
+
+// The load launch: block b converts elements [b kCosetLoad, ..) of one
+// input (evals, then weights, then idft), their rows copied into shared
+// memory a word a thread; word k of element e goes to plane k (dst[k n +
+// e]), so that the fold's copies and reads are contiguous.  Block 0 also
+// clears the fold's counter.
+__global__ void __launch_bounds__(kCosetLoad)
+fr_coset_load_kernel(const int32_t* __restrict__ ev, const int32_t* __restrict__ wt,
+                     const int32_t* __restrict__ M, int64_t n_ev, int64_t n_m,
+                     uint32_t* __restrict__ planes, unsigned* __restrict__ done) {
+  extern __shared__ __align__(16) unsigned char fr_smem[];
+  int32_t* raw = (int32_t*)fr_smem;
+  const int64_t per_ev = (n_ev + kCosetLoad - 1) / kCosetLoad;
+  int64_t blk = blockIdx.x;
+  const int32_t* src = ev;
+  uint32_t* dst = planes;
+  int64_t n = n_ev;
+  if (blk >= per_ev) {
+    blk -= per_ev;
+    src = wt;
+    dst += FR_NW * n_ev;
+    if (blk >= per_ev) {
+      blk -= per_ev;
+      src = M;
+      dst += FR_NW * n_ev;
+      n = n_m;
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) *done = 0;
+  const int64_t e0 = blk * kCosetLoad;
+  const int rows = n - e0 < kCosetLoad ? (int)(n - e0) : kCosetLoad;
+  copy_in(raw, src + e0 * FR_NL, (int64_t)rows * FR_NL);
+  cp_async_wait();
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t >= rows) return;
+  Fr x;
+  fr_packed(x, raw + t * FR_NL);
+#pragma unroll
+  for (int k = 0; k < FR_NW; ++k) dst[k * n + e0 + t] = x.w[k];
+}
+
+__device__ __forceinline__ Fr load_cg(const Fr* p) {
+  const uint4 a = __ldcg((const uint4*)p), b = __ldcg((const uint4*)p + 1);
+  Fr x;
+  x.w[0] = a.x; x.w[1] = a.y; x.w[2] = a.z; x.w[3] = a.w;
+  x.w[4] = b.x; x.w[5] = b.y; x.w[6] = b.z; x.w[7] = b.w;
+  return x;
+}
+
+// The fold launch over the planes of the load launch (values v = x 2^396):
+// block (bb, jb, c) takes rows b0 = bb tb .. + tb, columns j0 = jb tj ..
+// + tj and inner indices i0 = c ic .. + ic, M's tile (word k, row i,
+// column j at k ic tj + i tj + j) and e's (row b at k tb es + b es, es
+// = ic + 4) copied into shared memory.  Thread (pr, jl) takes row pr of
+// column jl: acc = sum_i v(e) v(M) = 2^792 sum_i e M, reduced once
+// (2^536 sum_i e M), times v(w) by a Montgomery product (2^676 w sum_i
+// e M); then the block's rows are summed.  The partial of each column goes to partial[(bb ict + c) W +
+// j]; the last block to finish (a counter, after a fence) sums a column's
+// partials on kCosetThreads / W threads and a tree, and two products by
+// c_lo (2^-140 each) and the store give S_j's canonical limbs.  Rows past
+// B read 0.
+__global__ void __launch_bounds__(kCosetThreads)
+fr_coset_fold_kernel(const uint32_t* __restrict__ planes, int B, int W, int tj,
+                     int tb, int ic, Fr* __restrict__ partial,
+                     unsigned* __restrict__ done, int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char fr_smem[];
+  __shared__ int last;
+  const int64_t n_ev = (int64_t)B * W;
+  const uint32_t* ev = planes;
+  const uint32_t* wt = planes + FR_NW * n_ev;
+  const uint32_t* M = wt + FR_NW * n_ev;
+  const int lj = __ffs(tj) - 1, li = __ffs(ic) - 1, lb = __ffs(tb) - 1;
+  const int jt = W >> lj, ict = W >> li, es = ic + 4;
+  int blk = blockIdx.x;
+  const int c = blk % ict;
+  blk /= ict;
+  const int jb = blk % jt, bb = blk / jt;
+  const int b0 = bb * tb, j0 = jb * tj, i0 = c * ic;
+  uint32_t* sm = (uint32_t*)fr_smem;
+  uint32_t* se = sm + FR_NW * ic * tj;
+  const int t = threadIdx.x;
+  if ((tj & 3) == 0 && (ic & 3) == 0) {   // 16-byte copies
+    const int qm = FR_NW * ic * tj / 4, qe = FR_NW * tb * ic / 4;
+    for (int f = t; f < qm; f += blockDim.x) {
+      const int w = 4 * f, k = w >> (li + lj), i = (w >> lj) & (ic - 1);
+      cp_async16(sm + w, M + (int64_t)k * W * W + (int64_t)(i0 + i) * W + j0 +
+                              (w & (tj - 1)));
+    }
+    for (int f = t; f < qe; f += blockDim.x) {
+      const int w = 4 * f, k = w >> (lb + li), b = (w >> li) & (tb - 1);
+      uint32_t* d = se + (k * tb + b) * es + (w & (ic - 1));
+      if (b0 + b < B)
+        cp_async16(d, ev + k * n_ev + (int64_t)(b0 + b) * W + i0 + (w & (ic - 1)));
+      else
+        *(uint4*)d = make_uint4(0, 0, 0, 0);
+    }
+  } else {
+    for (int w = t; w < FR_NW * ic * tj; w += blockDim.x) {
+      const int k = w >> (li + lj), i = (w >> lj) & (ic - 1);
+      cp_async4(sm + w, M + (int64_t)k * W * W + (int64_t)(i0 + i) * W + j0 +
+                            (w & (tj - 1)));
+    }
+    for (int w = t; w < FR_NW * tb * ic; w += blockDim.x) {
+      const int k = w >> (lb + li), b = (w >> li) & (tb - 1);
+      uint32_t* d = se + (k * tb + b) * es + (w & (ic - 1));
+      if (b0 + b < B)
+        cp_async4(d, ev + k * n_ev + (int64_t)(b0 + b) * W + i0 + (w & (ic - 1)));
+      else
+        *d = 0;
+    }
+  }
+  cp_async_wait();
+  __syncthreads();
+
+  // a thread has one carry flag, so a second row's chains would only
+  // queue behind the first's (two rows a thread, 256 threads a block,
+  // were 6% slower): latency is hidden by the block's other warps
+  const int jl = t & (tj - 1), pr = t >> lj;
+  const uint32_t* m_col = sm + jl;
+  const uint32_t* e_row = se + pr * es;
+  uint32_t sums[16], cy[9];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) sums[k] = 0;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) cy[k] = 0;
+  for (int i = 0; i < ic; ++i) {
+    uint32_t m[FR_NW], x[FR_NW];
+#pragma unroll
+    for (int k = 0; k < FR_NW; ++k) {
+      m[k] = m_col[(k * ic + i) * tj];
+      x[k] = e_row[k * tb * es + i];
+    }
+    lazy_mad(sums, cy, x, m);
+  }
+  const int j = j0 + jl, r0 = b0 + pr;
+  Fr s0, w;
+  lazy_reduce(s0, sums, cy);
+#pragma unroll
+  for (int k = 0; k < FR_NW; ++k)
+    w.w[k] = r0 < B ? wt[k * n_ev + (int64_t)r0 * W + j] : 0;
+  fr_mul_call(s0, s0, w);
+  __syncthreads();                        // the tiles are read
+  Fr* red = (Fr*)fr_smem;
+  red[t] = s0;
+  __syncthreads();
+  for (int h = (int)(blockDim.x >> lj) / 2; h > 0; h >>= 1) {
+    if (pr < h) fr_add(red[t], red[t], red[t + h * tj]);
+    __syncthreads();
+  }
+  if (pr == 0) partial[(int64_t)(bb * ict + c) * W + j] = red[jl];
+  __threadfence();
+  __syncthreads();
+  if (t == 0) last = atomicAdd(done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int n_parts = (int)gridDim.x / jt, G = blockDim.x / W;
+  const int jj = t & (W - 1), g = t / W;
   Fr acc;
   fr_zero(acc);
-  for (int p = 0; p < n_parts; ++p)
-    fr_add(acc, acc, partial[(int64_t)p * Wd + j]);
-  store_fr(out + (int64_t)j * FR_NL, acc);
+  if (g < G)
+    for (int p = g; p < n_parts; p += G)
+      fr_add(acc, acc, load_cg(partial + (int64_t)p * W + jj));
+  red[t] = acc;
+  __syncthreads();
+  for (int h = G / 2; h > 0; h >>= 1) {
+    if (g < h) fr_add(red[t], red[t], red[t + h * W]);
+    __syncthreads();
+  }
+  int32_t* raw = (int32_t*)(red + blockDim.x);
+  if (g == 0) {
+    Fr k, x = red[jj];
+    mont_from_const(k, FRC.c_lo);
+    fr_mul_call(x, x, k);
+    store_fr_times_call(raw + jj * FR_NL, x, k);
+  }
+  __syncthreads();
+  copy_out(out, raw, (int64_t)W * FR_NL);
 }
 
 // --- K18 -------------------------------------------------------------------
@@ -628,6 +893,34 @@ size_t fft_class_shared(int n, int tile, int G) {
   return (size_t)G * (2 * m - 1) * sizeof(Fr) + (size_t)G * m * FR_NL * 4;
 }
 
+// K17's fold tiles: tj columns, tb = kCosetThreads / tj rows (one a
+// thread), ic inner indices, halved from min(W, kCosetInner) down to
+// kCosetMinInner while the blocks fall short of kCosetFill
+struct CosetShape {
+  int tj, tb, ic, jt;
+  int64_t blocks;
+};
+
+CosetShape coset_shape(int B, int W) {
+  CosetShape c;
+  c.tj = W < kCosetCols ? W : kCosetCols;
+  c.tb = kCosetThreads / c.tj;
+  c.jt = W / c.tj;
+  const int64_t tiles = (int64_t)((B + c.tb - 1) / c.tb) * c.jt;
+  c.ic = W < kCosetInner ? W : kCosetInner;
+  while (c.ic > kCosetMinInner && tiles * (W / c.ic) < kCosetFill) c.ic /= 2;
+  c.blocks = tiles * (W / c.ic);
+  return c;
+}
+
+// the fold's shared memory: its tiles, or the last block's sums and
+// output rows, whichever is more
+size_t coset_shared(const CosetShape& c) {
+  const size_t tiles = (size_t)FR_NW * 4 * (c.ic * c.tj + c.tb * (c.ic + 4));
+  const size_t sums = (size_t)kCosetThreads * sizeof(Fr) + kCosetWidth * FR_NL * 4;
+  return tiles > sums ? tiles : sums;
+}
+
 unsigned blocks_for(int64_t n) {
   return (unsigned)((n + kBlock - 1) / kBlock);
 }
@@ -636,6 +929,7 @@ unsigned blocks_for(int64_t n) {
 // twice: the dynamic shared memory each kernel has been allowed there
 // (cudaFuncSetAttribute) and the batch inverse's co-resident blocks.
 int tile_allowed[kMaxDevices], class_allowed[kMaxDevices];
+int coset_allowed[kMaxDevices];
 int inv_allowed[kMaxDevices], inv_blocks_cap[kMaxDevices];
 
 int current_device(int* dev) {
@@ -756,35 +1050,37 @@ int fr_barycentric_launch(const int32_t* poly, const int32_t* roots,
   return cudaGetLastError();
 }
 
-// scratch: fr_coset_scratch_bytes(B, Wd) bytes; Wd a power of two <= 256
+// scratch: fr_coset_scratch_bytes(B, Wd) bytes; Wd a power of two <= kCosetWidth:
+// the three inputs' word planes, the fold's partials, its counter
 int64_t fr_coset_scratch_bytes(int B, int Wd) {
-  const int rows = kBlock / Wd;
-  const int64_t nb = (B + rows - 1) / rows;
-  return ((int64_t)2 * B * Wd + (int64_t)Wd * Wd + nb * Wd) * sizeof(Fr);
+  const CosetShape c = coset_shape(B, Wd);
+  return ((int64_t)2 * B * Wd + (int64_t)Wd * Wd) * sizeof(Fr) +
+         c.blocks / c.jt * Wd * (int64_t)sizeof(Fr) + 16;
 }
 
 int fr_coset_interpolate_launch(const int32_t* evals, const int32_t* idft,
                                 const int32_t* weights, int B, int Wd,
                                 void* scratch, int32_t* out,
                                 cudaStream_t stream) {
-  const int rows = kBlock / Wd;
-  const int nb = (B + rows - 1) / rows;
-  Fr* ev = (Fr*)scratch;
-  Fr* wt = ev + (int64_t)B * Wd;
-  Fr* M = wt + (int64_t)B * Wd;
-  Fr* partial = M + (int64_t)Wd * Wd;
+  if (B < 1 || Wd < 1 || (Wd & (Wd - 1)) || Wd > kCosetWidth)
+    return cudaErrorInvalidValue;
+  const CosetShape c = coset_shape(B, Wd);
   const int64_t n_ev = (int64_t)B * Wd, n_m = (int64_t)Wd * Wd;
-  fr_load_kernel<<<blocks_for(n_ev), kBlock, 0, stream>>>(evals, n_ev, ev);
-  fr_load_kernel<<<blocks_for(n_ev), kBlock, 0, stream>>>(weights, n_ev, wt);
-  fr_load_kernel<<<blocks_for(n_m), kBlock, 0, stream>>>(idft, n_m, M);
+  uint32_t* planes = (uint32_t*)scratch;
+  Fr* partial = (Fr*)(planes + FR_NW * (2 * n_ev + n_m));
+  unsigned* done = (unsigned*)(partial + c.blocks / c.jt * Wd);
+  const int64_t loads = 2 * ((n_ev + kCosetLoad - 1) / kCosetLoad) +
+                        (n_m + kCosetLoad - 1) / kCosetLoad;
+  const size_t shm_load = (size_t)kCosetLoad * FR_NL * 4;
+  fr_coset_load_kernel<<<(unsigned)loads, kCosetLoad, shm_load, stream>>>(
+      evals, weights, idft, n_ev, n_m, planes, done);
   int err = cudaGetLastError();
   if (err) return err;
-  fr_coset_fold_kernel<<<nb, rows * Wd, 0, stream>>>(ev, M, wt, B, Wd,
-                                                     partial);
-  err = cudaGetLastError();
+  const size_t shm = coset_shared(c);
+  err = allow_shared(fr_coset_fold_kernel, coset_allowed, shm);
   if (err) return err;
-  fr_coset_finish_kernel<<<blocks_for(Wd), kBlock, 0, stream>>>(partial, nb,
-                                                                Wd, out);
+  fr_coset_fold_kernel<<<(unsigned)c.blocks, kCosetThreads, shm, stream>>>(
+      planes, B, Wd, c.tj, c.tb, c.ic, partial, done, out);
   return cudaGetLastError();
 }
 

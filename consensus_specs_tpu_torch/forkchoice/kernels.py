@@ -23,7 +23,9 @@ head (K23, JAX `_head_kernel`)
     ORed up by the same doubling with max, the best child of each parent
     by a masked segment-argmax over (subtree weight, the 8 big-endian
     root words), and the head as the fixpoint of doubling on best_child
-    from the justified block.
+    from the justified block.  The kernel ends each doubling once it has
+    reached its fixpoint and takes the root words two at a time as one
+    unsigned key: the same head.
 
 Unlike JAX's functional kernels, `fc_apply` updates the latest-message
 table and the weights in place and returns the accept mask (the store
@@ -55,6 +57,9 @@ from .. import _build
 FC_BLOCK_STEPS = (64, 1024, 16384)
 FC_VALIDATOR_STEPS = (256, 4096, 65536, 1048576)
 FC_BATCH_STEPS = (64, 1024, 16384)
+
+# K23's block (`FC_HEAD_THREADS`)
+HEAD_THREADS = 512
 
 
 def fc_rung(n: int, steps=FC_BLOCK_STEPS) -> int:
@@ -171,7 +176,8 @@ _SIGNATURES = {
     "fc_apply_launch": [_p] * 10 + [_i32, _i32, _p],
     "fc_refresh_launch": [_p, _p, _i64, _i32, _p, _p],
     "fc_head_launch": ([_p, _p, _i32, _i64, _p, _p, _p, _p, _p, _p,
-                        _i64, _i64, _i64, _i32, _i32, _i32, _p, _p, _p]),
+                        _i64, _i64, _i64, _i32, _i32, _i32, _p, _p, _p, _p]),
+    "fc_barrier_probe_launch": [_i32, _p, _p],
 }
 
 
@@ -240,10 +246,15 @@ def fc_refresh_kernel(lm_block, balance, nb_pad: int):
 
 def fc_head_kernel(parent, node_weight, boost_idx: int, boost_amt: int, real,
                    block_epoch, je, uje, fin_ok, limbs, sj: int, sf: int,
-                   cur: int, justified_idx: int):
-    """K23 on the card: `fc_head_plain`'s function in one block of 1024
-    threads, its phases apart by barriers, the double buffers of each
-    round in a scratch tensor."""
+                   cur: int, justified_idx: int, stats=None):
+    """K23 on the card: `fc_head_plain`'s function in one block of
+    HEAD_THREADS threads, its phases apart by barriers, the rung's arrays
+    in shared memory where they fit and in a scratch tensor past that
+    (rungs of 8192 and up).  As the store makes
+    them, the root words lie in [0, 2**32) and the dummy slot is a padded
+    row (its own parent, not live); the kernel counts on both.  Where `stats` (an int32 (3,)
+    tensor on the card) is given, the kernel writes the rounds its sums,
+    its tie-break and its doubling ran."""
     n1 = parent.shape[0]
     nb_pad = n1 - 1
     for name, t, dtype, shape in (
@@ -261,15 +272,29 @@ def fc_head_kernel(parent, node_weight, boost_idx: int, boost_amt: int, real,
     args = (parent, node_weight, real, block_epoch, je, uje, fin_ok, limbs)
     _build.require_cuda("fc_head", *args)
     lib = _lib()
-    scratch = torch.empty(lib.fc_head_scratch_bytes(n1), dtype=torch.uint8,
-                          device=parent.device)
+    nbytes = lib.fc_head_scratch_bytes(n1)
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=parent.device)
+               if nbytes else None)
     out = torch.empty((), dtype=torch.int32, device=parent.device)
     _build.check(lib.fc_head_launch(
         parent.data_ptr(), node_weight.data_ptr(), boost_idx, boost_amt,
         *(t.data_ptr() for t in args[2:]), sj, sf, cur, justified_idx,
-        nb_pad, head_rounds(nb_pad), scratch.data_ptr(), out.data_ptr(),
+        nb_pad, head_rounds(nb_pad),
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+        None if stats is None else stats.data_ptr(),
         _build.stream_ptr(parent)), "fc_head")
     _build.launches["fc_head"] += 1
+    return out
+
+
+def fc_barrier_probe(n: int, device) -> torch.Tensor:
+    """A probe, on no path: n empty barrier phases of K23's block in one
+    launch; the time over n is one dependent phase's floor.  Not counted
+    in `launches`."""
+    out = torch.empty((), dtype=torch.int32, device=device)
+    _build.require_cuda("fc_barrier_probe", out)
+    _build.check(_lib().fc_barrier_probe_launch(
+        int(n), out.data_ptr(), _build.stream_ptr(out)), "fc_barrier_probe")
     return out
 
 

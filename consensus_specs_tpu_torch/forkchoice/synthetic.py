@@ -129,3 +129,68 @@ def kernel_inputs(nb_pad: int, v_pad: int, batch: int, seed: int = 0):
         real=real, block_epoch=block_epoch, je=je, uje=uje, fin_ok=fin_ok,
         limbs=limbs, boost_idx=int(rng.randint(1, nb)),
         boost_amt=40 * 32 * 10 ** 9, sj=sj, sf=sf, cur=cur, justified_idx=0)
+
+
+HEAD_CASES = ("tree", "boost", "roots", "chain", "full_chain", "non_viable",
+              "words")
+
+
+def head_inputs(nb_pad: int, case: str, seed: int = 0) -> dict:
+    """K23's inputs for one named case on `kernel_inputs`' tree: the
+    dict `fc_head`'s arguments are taken from, in its order under the
+    keys parent, node_weight, boost_idx, boost_amt, real, block_epoch,
+    je, uje, fin_ok, limbs, sj, sf, cur, justified_idx.
+
+    tree    the seeded tree and its weights, no boost;
+    boost   the same with the proposer boost;
+    roots   zero weights: the head decided by the root words (block 1
+            over 2 on a first word of 2**31 against 2**31 - 1, block 4
+            over 3 on the fourth);
+    chain   every live block the child of the one before, all viable and
+            weighted;
+    full_chain  the same over every row of the rung but the dummy slot:
+            a chain of NB blocks, whose pointers need all log2(NB)
+            rounds;
+    non_viable  the anchor's child 1 carries the heaviest subtree, but
+            none of its leaves is viable: the head lies below block 2;
+    words   zero weights, blocks 3 and 4 (block 1's children) equal in
+            all their words but the last, words of 2**31 - 1, 2**31 and
+            2**32 - 1 among them; block 4 wins on the low word of the
+            last pair (2**31 against 2**31 - 1), and so every tie-break
+            round runs."""
+    x = kernel_inputs(nb_pad, 256, 64, seed=seed)
+    keys = ("parent", "node_weight", "boost_idx", "boost_amt", "real",
+            "block_epoch", "je", "uje", "fin_ok", "limbs", "sj", "sf",
+            "cur", "justified_idx")
+    h = {k: x[k] for k in keys}
+    h["boost_idx"], h["boost_amt"] = nb_pad, 0
+    nb = nb_pad - nb_pad // 8
+    if case == "boost":
+        h["boost_idx"], h["boost_amt"] = x["boost_idx"], x["boost_amt"]
+    elif case in ("roots", "words"):
+        h["node_weight"] = np.zeros_like(x["node_weight"])
+        if case == "words":
+            row = np.array([2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1, 0, 7,
+                            2 ** 32 - 1, 2 ** 31, 2 ** 31 - 1])
+            h["limbs"] = x["limbs"].copy()
+            h["limbs"][3] = h["limbs"][4] = row
+            h["limbs"][4, 7] = 2 ** 31
+    elif case in ("chain", "full_chain"):
+        if case == "full_chain":
+            nb = nb_pad
+            h["real"] = np.arange(nb_pad + 1) < nb_pad
+            h["node_weight"] = np.where(
+                h["real"], np.arange(nb_pad + 1) % 97 * 10 ** 9, 0)
+        h["parent"] = x["parent"].copy()
+        h["parent"][1:nb] = np.arange(nb - 1, dtype=np.int32)
+        h["fin_ok"] = h["real"].copy()
+        h["je"] = np.where(h["real"], x["sj"], 0)
+        h["uje"] = h["je"].copy()
+    elif case == "non_viable":
+        h["node_weight"] = x["node_weight"].copy()
+        h["node_weight"][3] = 10 ** 15
+        h["fin_ok"] = x["fin_ok"].copy()
+        h["fin_ok"][3:5] = False
+    elif case != "tree":
+        raise ValueError(f"unknown head case {case!r}")
+    return h

@@ -25,7 +25,12 @@ from .field import N_LIMBS, R_MODULUS
 
 N_WORDS = 8            # 32-bit words of a kernel Fr
 R_KERNEL = 1 << 256    # the kernels' Montgomery R
-BLOCK = 256            # threads per block of K17's fold
+COSET_THREADS = 512    # K17's fold: threads a block (`kCosetThreads`)
+COSET_WIDTH = 256      # K17's W, at most (`kCosetWidth`)
+COSET_COLS = 32        # its column tile, at most (`kCosetCols`)
+COSET_INNER = 64       # its inner tile, at most (`kCosetInner`)
+COSET_MIN_INNER = 4    # its inner tile, at least (`kCosetMinInner`)
+COSET_FILL = 128       # fold blocks aimed at (`kCosetFill`)
 FFT_TILE = 128         # K18's tile T (`kFftTile`)
 FFT_CLASS_MAX = 512    # n / FFT_TILE, at most, for n > FFT_TILE
 INV_BLOCK = 256        # K15's batch inverse: threads a block (`kInvBlock`)
@@ -205,12 +210,28 @@ def barycentric_kernel(poly, roots, z, h_pow_w, inv_scale):
 # --- K17 -------------------------------------------------------------------
 
 
+def coset_shape(B: int, W: int) -> dict:
+    """K17's fold tiles (`coset_shape` in the source): tj columns, tb
+    rows (one a thread), ic inner indices (halved from min(W,
+    COSET_INNER) down to COSET_MIN_INNER while the blocks fall short of
+    COSET_FILL) and the block count."""
+    tj = min(W, COSET_COLS)
+    tb = COSET_THREADS // tj
+    tiles = -(-B // tb) * (W // tj)
+    ic = min(W, COSET_INNER)
+    while ic > COSET_MIN_INNER and tiles * (W // ic) < COSET_FILL:
+        ic //= 2
+    return {"tj": tj, "tb": tb, "ic": ic, "blocks": tiles * (W // ic)}
+
+
 def coset_interpolate_kernel(evals, idft, weights):
     """K17: S_j = sum_b weights[b, j] sum_i evals[b, i] idft[i, j] for
     evals and weights (B, W, 33), idft (W, W, 33), W a power of two up to
-    256; canonical (W, 33)."""
+    256; canonical (W, 33).  Two launches (the inputs packed into word
+    planes; the tiled fold with its lazy sums and the last block's sum of
+    the partials), counted as one call."""
     B, W = evals.shape[0], evals.shape[1]
-    if B < 1 or W < 1 or W & (W - 1) or W > BLOCK:
+    if B < 1 or W < 1 or W & (W - 1) or W > COSET_WIDTH:
         raise ValueError(f"fr_coset_interpolate: batch {B}, width {W}")
     for name, t, shape in (("evals", evals, (B, W, 33)),
                            ("idft", idft, (W, W, 33)),

@@ -812,6 +812,47 @@ def test_fr_coset_interpolate_kernel(dev, n_cells):
     assert FB.from_limbs(got) == want
 
 
+@pytest.mark.parametrize("n_cells", [16, 128, 1024])
+def test_fr_coset_interpolate_rungs(dev, n_cells):
+    """K17 at the DAS ladder's rungs (its tiles: 32 fold blocks at 16, 128
+    at 128 and 1024) against its plain version."""
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+
+    R = FB.R_MODULUS
+    rng = np.random.RandomState(n_cells)
+    rows = lambda n: [[int.from_bytes(rng.bytes(32), "little") % R
+                       for _ in range(64)] for _ in range(n)]
+    args = tuple(torch.from_numpy(a).to(dev) for a in
+                 FB.coset_interpolate_inputs(rows(n_cells), rows(64),
+                                             rows(n_cells)))
+    before = _build.launches["fr_coset_interpolate"]
+    got = FB.coset_interpolate(*args)
+    torch.cuda.synchronize()
+    assert _build.launches["fr_coset_interpolate"] == before + 1
+    assert torch.equal(got, FB.FR.canon(FB.coset_interpolate(*args,
+                                                              plain=True)))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_fr_coset_interpolate_worst_case(dev, packed):
+    """K17's lazy sums at their largest: every input r - 1 at B = 1024,
+    as a field element, and as limbs whose value is r - 1 (the largest
+    value the fold multiplies)."""
+    from consensus_specs_tpu_torch.ops import fr_batch as FB
+
+    R = FB.R_MODULUS
+    if packed:
+        one = torch.tensor([((R - 1) >> (12 * k)) & 0xFFF for k in range(33)],
+                           dtype=torch.int32)
+    else:
+        one = torch.from_numpy(FB.FR.to_mont_batch([R - 1]))[0]
+    ev = one.expand(1024, 64, 33).contiguous().to(dev)
+    m = one.expand(64, 64, 33).contiguous().to(dev)
+    got = FB.coset_interpolate(ev, m, ev.clone())
+    assert torch.equal(got, FB.FR.canon(FB.coset_interpolate(
+        ev, m, ev.clone(), plain=True)))
+
+
 @pytest.mark.parametrize("n,batch,inverse", [(8, 2, False), (128, 2, True),
                                              (4096, 1, True),
                                              (8192, 1, False)])
@@ -1172,6 +1213,28 @@ def test_fc_kernels(dev, nb_pad, v_pad, batch):
         assert head == 4
         for name, n in (("fc_apply", 1), ("fc_refresh", 1), ("fc_head", 3)):
             assert _build.launches[name] == before[name] + n
+
+
+@pytest.mark.parametrize("nb_pad", [64, 1024, 16384])
+def test_fc_head_cases(dev, nb_pad):
+    """K23 against its plain version on every case of
+    `synthetic.head_inputs` (the tree with and without the boost, the
+    root words alone, a linear chain, a heavier branch without a viable
+    leaf, ties broken in the low word of the last pair) at the ladder's
+    three rungs; 16384 is the global-scratch route."""
+    from consensus_specs_tpu_torch.forkchoice import kernels as FK
+    from consensus_specs_tpu_torch.forkchoice import synthetic as FS
+
+    before = _build.launches["fc_head"]
+    for case in FS.HEAD_CASES:
+        args = tuple(_fc_tensors(FS.head_inputs(nb_pad, case), dev).values())
+        got = int(FK.fc_head(*args))
+        assert got == int(FK.fc_head_plain(*args)), case
+        if case in ("roots", "words"):
+            assert got == 4
+        if case == "non_viable":
+            assert got not in (1, 3, 4)
+    assert _build.launches["fc_head"] == before + len(FS.HEAD_CASES)
 
 
 def test_fc_store_on_the_card_equals_the_spec_oracle(dev):
