@@ -120,8 +120,10 @@ and PyTorch built for CUDA.  The script:
    (`fc_head`) against their plain versions at the mainnet shape (1024
    blocks, 2**20 validators, batches of 16384) on seeded inputs with a
    repeated validator, padded rows, equivocators, the boost and a head
-   decided by root words at the 2**31 boundary, K22 also against
-   `index_add_`; K23 also on every case of `synthetic.head_inputs` (a
+   decided by root words at the 2**31 boundary, K21 also over 8
+   batches back to back with its winner table all -1 after each, K22
+   also against `index_add_`; K23 also on every case of
+   `synthetic.head_inputs` (a
    linear chain, a chain over the rung, a heavier branch without a
    viable leaf, ties in the low word of the last pair) at NB = 64, 1024
    and 16384 (its global-scratch route), its rounds and the empty
@@ -136,7 +138,9 @@ and PyTorch built for CUDA.  The script:
    edge cases first, K24 (`epoch_sweep_sharded`, the sweep's three
    phases per shard) at 2**14 validators over 4 shards with proposers in
    other shards, negative and out of range, each phase against its plain
-   version and the sweep against K1; K25 (`rlc_miller_shard`) and K26
+   version and the sweep against K1, and with every attester's proposer
+   among 32 validators at D = 2, 4 and 8 against K1 and the plain sharded
+   sweep; K25 (`rlc_miller_shard`) and K26
    (`rlc_shard_combine`) on 16 statements over 4 shards, two of them
    padding only, then K26 on two equal partials, K26's f equal to the
    unsharded K9 f; K27 (`g1_shard_fold`) on (P, P, infinity, Q); the
@@ -275,6 +279,8 @@ FC_PROBE_PHASES = 1000               # the empty barrier probe's phases
 # over 4; the DAS verify's MSMs over 2, on 2 columns x 8 blobs
 SHARD_K24_N = 2**14
 SHARD_D = 4
+# K24's and K1's proposer shares on 32 rows (`convert.hot_proposers`)
+HOT_PROPOSERS = 32
 SHARD_WIDTHS = (2, 4, 8)
 SHARD_BLS_CHECK = 16
 SHARD_MSM = 4096
@@ -3622,6 +3628,27 @@ def check_fc_kernels(dev, record):
                              "or a padded row was accepted")
     if bool((acc & ~k["can_update"][k["val_idx"].long()]).any()):
         raise AssertionError("fc_apply: an equivocator's row was accepted")
+    # FC_BATCHES batches back to back (`synthetic.apply_batches`: repeated
+    # validators, winners rejected as older or as equivocators, padded
+    # rows), the winner table all -1 after each
+    xb, batches = FS.apply_batches(nb, nv, b, FC_BATCHES, seed=SEED)
+    kb, pb = (_fc_tensors(xb, dev) for _ in range(2))
+    table = FK.winner_table(dev, nv + 1)
+    for rows in batches:
+        rows = [torch.from_numpy(r).to(dev) for r in rows]
+        got = FK.fc_apply_kernel(*rows, *(kb[n] for n in names[3:]))
+        want_b = FK.fc_apply_plain(*rows, *(pb[n] for n in names[3:]))
+        err = max(err, require_equal(
+            "fc_apply (batches back to back)",
+            [got, kb["lm_epoch"][:nv], kb["lm_block"][:nv],
+             kb["node_weight"][:nb]],
+            [want_b, pb["lm_epoch"][:nv], pb["lm_block"][:nv],
+             pb["node_weight"][:nb]]))
+        if not bool((table == -1).all()):
+            raise AssertionError("fc_apply: the winner table is not all -1 "
+                                 "after a batch")
+    print(f"fc_apply: {FC_BATCHES} batches back to back equal to the plain "
+          f"version, the winner table all -1 after each")
 
     def restore():
         for n in ("lm_epoch", "lm_block", "node_weight"):
@@ -3631,6 +3658,8 @@ def check_fc_kernels(dev, record):
                          20, setup=restore)
     apply_plain = device_ms(
         lambda: FK.fc_apply_plain(*(k[n] for n in names)), 5, setup=restore)
+    # the floor: an empty cooperative launch of K21's grid with its barrier
+    floor_ms = device_ms(lambda: FK.fc_grid_barrier_probe(b, 1, dev), 20)
     live = x["att_epoch"] >= 0
     acc_np = acc.cpu().numpy()
     touched = np.unique(np.concatenate([
@@ -3643,6 +3672,7 @@ def check_fc_kernels(dev, record):
            "consensus_specs_tpu/forkchoice/kernels.py:75", err, apply_ms,
            apply_plain, k21_bytes / HBM_BYTES_PER_S * 1e3, "bytes",
            bound_bytes=int(k21_bytes), accepted=int(acc_np.sum()),
+           launch_floor_ms=floor_ms,
            shape=f"B={b}, V={nv}, NB={nb}")
 
     lm_b, bal = orig["lm_block"], orig["balance"]
@@ -3898,34 +3928,34 @@ def check_sharded_kernels(dev, record, int32_ops_per_s):
     err = 0
     for scal in (SCALARS, (100, 10, 10**13), (0, 0, 0)):
         sc = P.EpochScalars(*scal)
-        sums = []
-        for r in regs:
-            got = E.sweep_totals_kernel(r, sc)
-            err = max(err, require_equal("epoch_sweep_sharded totals", got,
-                                         E.sweep_totals_plain(r, sc)))
-            sums.append(got)
-        sums = CO.all_reduce_sum(sums)
-        for r, t in zip(regs, sums):
-            got = E.sweep_deltas_kernel(r, sc, MAINNET, t, n)
-            want = E.sweep_deltas_plain(r, sc, MAINNET, t, n)
-            err = max(err, require_equal("epoch_sweep_sharded deltas",
-                                         list(got), list(want)))
-            recv = want[2][: r.balance.shape[0]]
-            got = E.sweep_apply_kernel(r, sc, MAINNET, t, got[0], got[1],
-                                       recv)
-            want = E.sweep_apply_plain(r, sc, MAINNET, t, want[0], want[1],
-                                       recv)
-            err = max(err, require_equal("epoch_sweep_sharded apply",
-                                         list(got), list(want)))
+        err = max(err, check_sweep_phases(regs, sc, MAINNET, n, ""))
         bal, eff = E.epoch_sweep_sharded(regs, sc, MAINNET)
         err = max(err, require_equal(
             f"epoch_sweep_sharded{scal} against K1",
             [torch.cat(bal), torch.cat(eff)],
             list(E.epoch_sweep_kernel(reg, sc, MAINNET))))
+    # every attester's proposer among HOT_PROPOSERS validators, at D = 2,
+    # 4 and 8: the sweep against the plain sharded sweep and K1
+    reg_np["proposer_index"] = C.hot_proposers(n, HOT_PROPOSERS, SEED)
+    hot = C.registry_to_torch(reg_np, dev)
+    sc = P.EpochScalars(*SCALARS)
+    want = list(E.epoch_sweep_kernel(hot, sc, MAINNET))
+    for w in SHARD_WIDTHS:
+        hregs = P.shard_registry(_virtual_mesh(dev, w), hot)
+        got = E.epoch_sweep_sharded(hregs, sc, MAINNET)
+        plain = E.epoch_sweep_sharded(hregs, sc, MAINNET, plain=True)
+        err = max(err, require_equal(
+            f"epoch_sweep_sharded(hot proposers, D={w}) against K1",
+            [torch.cat(got[0]), torch.cat(got[1])], want))
+        err = max(err, require_equal(
+            f"epoch_sweep_sharded(hot proposers, D={w}) against plain",
+            [torch.cat(got[0]), torch.cat(got[1])],
+            [torch.cat(plain[0]), torch.cat(plain[1])]))
     err24 = err
     print(f"K24 epoch_sweep_sharded at n={n}, D={d}: every phase equal to "
           f"its plain version on every shard, the sweep equal to K1 "
-          f"(3 scalar sets)")
+          f"(3 scalar sets); on {HOT_PROPOSERS} hot proposers at D in "
+          f"{SHARD_WIDTHS} equal to K1 and the plain sharded sweep")
 
     # -- K25, K26: 16 statements over 4 shards, shards 2 and 3 padding ------
     tasks, _ = bls_tasks(SHARD_BLS_CHECK, BLS_COMMITTEE, BLS_SEED_BASE)
@@ -4115,42 +4145,52 @@ def check_rlc_edge_shapes(dev) -> int:
     return err
 
 
+def check_sweep_phases(regs, sc, params, n_global: int, label: str) -> int:
+    """K24's three phases on every shard of `regs` against their plain
+    versions, each on the same inputs: (a)'s sums and zeroed
+    accumulators, (b)'s totals and accumulators (the kernel's all-reduced
+    sums into both), (c)'s outputs (the plain totals and reduced slices
+    into both).  Returns the max abs error."""
+    from consensus_specs_tpu_torch.parallel import collectives as CO
+    from consensus_specs_tpu_torch.parallel import epoch as E
+
+    err = 0
+    parts = [E.sweep_totals_kernel(r, sc, n_global) for r in regs]
+    for r, part in zip(regs, parts):
+        err = max(err, require_equal(f"epoch_sweep_sharded totals{label}",
+                                     list(part),
+                                     list(E.sweep_totals_plain(r, sc,
+                                                               n_global))))
+    sums = CO.all_reduce_sum([s for s, _ in parts])
+    p_accs = [a.clone() for _, a in parts]
+    p_totals = []
+    for r, s, (_, a), pa in zip(regs, sums, parts, p_accs):
+        got = E.sweep_shares_kernel(r, sc, params, s, a)
+        p_totals.append(E.sweep_shares_plain(r, sc, params, s, pa))
+        err = max(err, require_equal(f"epoch_sweep_sharded shares{label}",
+                                     [got, a], [p_totals[-1], pa]))
+    for r, t, got in zip(regs, p_totals, CO.reduce_scatter_sum(p_accs)):
+        err = max(err, require_equal(
+            f"epoch_sweep_sharded apply{label}",
+            list(E.sweep_apply_kernel(r, sc, params, t, got)),
+            list(E.sweep_apply_plain(r, sc, params, t, got))))
+    return err
+
+
 def check_sweep_sharded_main(dev, reg, sc, params, record, err_edges):
     """K24 at the main path's shape: the step's registry over SHARD_D
-    shards, each phase on each shard against its plain version (the
-    kernel's and the plain deltas each reduce-scattered into their own
-    apply), then the whole sharded sweep against the plain sharded sweep;
-    timed there and recorded with the edge cases' error."""
+    shards, each phase on each shard against its plain version
+    (`check_sweep_phases`), then the whole sharded sweep against the
+    plain sharded sweep; timed there and recorded with the edge cases'
+    error."""
     import torch
 
     from consensus_specs_tpu_torch import parallel as P
-    from consensus_specs_tpu_torch.parallel import collectives as CO
     from consensus_specs_tpu_torch.parallel import epoch as E
 
     n, d = reg.balance.shape[0], SHARD_D
     regs = P.shard_registry(_virtual_mesh(dev, d), reg)
-    err = err_edges
-    sums = []
-    for r in regs:
-        got = E.sweep_totals_kernel(r, sc)
-        err = max(err, require_equal("epoch_sweep_sharded totals (main)",
-                                     got, E.sweep_totals_plain(r, sc)))
-        sums.append(got)
-    sums = CO.all_reduce_sum(sums)
-    k_deltas, p_deltas = [], []
-    for r, t in zip(regs, sums):
-        k_deltas.append(E.sweep_deltas_kernel(r, sc, params, t, n))
-        p_deltas.append(E.sweep_deltas_plain(r, sc, params, t, n))
-        err = max(err, require_equal("epoch_sweep_sharded deltas (main)",
-                                     list(k_deltas[-1]), list(p_deltas[-1])))
-    k_recv = CO.reduce_scatter_sum([a for _, _, a in k_deltas])
-    p_recv = CO.reduce_scatter_sum([a for _, _, a in p_deltas])
-    for r, t, kd, pd, kr, pr in zip(regs, sums, k_deltas, p_deltas, k_recv,
-                                    p_recv):
-        err = max(err, require_equal(
-            "epoch_sweep_sharded apply (main)",
-            list(E.sweep_apply_kernel(r, sc, params, t, kd[0], kd[1], kr)),
-            list(E.sweep_apply_plain(r, sc, params, t, pd[0], pd[1], pr))))
+    err = max(err_edges, check_sweep_phases(regs, sc, params, n, " (main)"))
     kb, ke = E.epoch_sweep_sharded(regs, sc, params)
     pb, pe = E.epoch_sweep_sharded(regs, sc, params, plain=True)
     err = max(err, require_equal(
@@ -4159,11 +4199,15 @@ def check_sweep_sharded_main(dev, reg, sc, params, record, err_edges):
     k24_ms = device_ms(lambda: E.epoch_sweep_sharded(regs, sc, params), 20)
     k24_kernel_ms = sum(kernel_device_ms(
         lambda: E.epoch_sweep_sharded(regs, sc, params),
-        [(E, "sweep_totals_kernel"), (E, "sweep_deltas_kernel"),
+        [(E, "sweep_totals_kernel"), (E, "sweep_shares_kernel"),
          (E, "sweep_apply_kernel")]).values())
     k24_plain = cuda_ms(
-        lambda: E.epoch_sweep_sharded(regs, sc, params, plain=True), 3)
+        lambda: E.epoch_sweep_sharded(regs, sc, params, plain=True), 2)
+    # the function's bytes (each input read once, each output written
+    # once) and the accumulators the sharded form must zero; the design's
+    # passes move 28 + 14 + 76 bytes a row besides
     k24_bytes = n * (5 * 8 + 8 + 4 + 4 * 1 + 2 * 8) + 8 * n * d
+    k24_moved = n * (28 + 14 + 76) + 8 * n * d
     print(f"K24 epoch_sweep_sharded at the main path's shape, n={n} over "
           f"D={d} shards: every phase equal to its plain version on every "
           f"shard, the sweep equal to the plain sharded sweep; "
@@ -4175,7 +4219,8 @@ def check_sweep_sharded_main(dev, reg, sc, params, record, err_edges):
            "consensus_specs_tpu/parallel/partition.py:248", err,
            k24_kernel_ms, k24_plain, k24_bytes / HBM_BYTES_PER_S * 1e3,
            "bytes", sweep_with_collectives_ms=k24_ms,
-           shape=f"n={n} over D={d} shards (3 launches a shard)",
+           moved_bytes_ms=k24_moved / HBM_BYTES_PER_S * 1e3,
+           shape=f"n={n} over D={d} shards (3 launches a shard, no memset)",
            replaces_also=["consensus_specs_tpu/parallel/epoch.py:111",
                           "consensus_specs_tpu/parallel/epoch.py:190",
                           "consensus_specs_tpu/parallel/merkle.py:117"])

@@ -33,8 +33,12 @@ and `bench.py`'s 1% dirty set, through functions both checkouts have:
 - each persisted forest's dirty-path update (`MerkleForest.update`: the
   balances forest, depth 18, and the registry forest, depth 20, at rung
   16384) and both one after the other;
-- K24's three phases on shard 0 of the registry over 4 shards, the sums
-  all-reduced and the shares reduce-scattered as the sharded sweep does;
+- K24: the whole sharded sweep over 4 shards (CUDA events around the
+  sweep, and around each of its kernel wrappers' calls in it, summed),
+  the same on a registry whose attesters name 32 proposers with K1 on
+  it, and the three passes on shard 0, the sums all-reduced and the
+  shares reduce-scattered as the sharded sweep does;
+- the K24 prelude probe's cycles (`epoch.prelude_probe`);
 - the incremental step (`IncrementalEpochStep`): its device busy time
   (torch.profiler, the sum over its device operations) and its wall
   (host clock, median of 9);
@@ -65,9 +69,13 @@ and in the `fc` group (it builds `forkchoice`), on
 
 - K23 on the seeded tree at NB = 1024 and 16384 (the large-rung route)
   and on a linear chain of the live blocks at 1024, 50 calls each;
-- K21 and K22 on the mainnet batch (B = 16384, V = 2**20, NB = 1024), as
-  controls, K21's tables restored before each call;
-- each call's CUDA launches (torch.profiler, one call);
+- K21 on the mainnet batch (B = 16384, V = 2**20, NB = 1024) and at B =
+  1024 on the same tables, its tables restored before each call (its
+  digest covers the accept mask and the tables it updates), the empty
+  cooperative launch of its grid with 0 and 1 barriers
+  (`fc_grid_barrier_probe`), and K22 on that batch as a control;
+- each call's CUDA launches (torch.profiler, one call; also in the
+  `epoch` group);
 
 and in the `g1fft` group, on `chip_smoke.py`'s inputs:
 
@@ -188,21 +196,40 @@ def epoch_calls(cs, dev) -> tuple:
     m = n // SHARDS_K24
     shards = [E.RegistryArrays(*(f[d * m:(d + 1) * m].clone() for f in reg))
               for d in range(SHARDS_K24)]
-    sums = CO.all_reduce_sum([E.sweep_totals_kernel(r, sc) for r in shards])
-    deltas = [E.sweep_deltas_kernel(r, sc, MAINNET, s, n)
-              for r, s in zip(shards, sums)]
-    got = CO.reduce_scatter_sum([acc for _, _, acc in deltas])
-    r0, s0, (rew, pen, _) = shards[0], sums[0], deltas[0]
-    calls["epoch_sweep_sharded_a"] = lambda: E.sweep_totals_kernel(r0, sc)
-    calls["epoch_sweep_sharded_b"] = lambda: E.sweep_deltas_kernel(
-        r0, sc, MAINNET, s0, n)
-    rew0, pen0 = rew.clone(), pen.clone()
-    calls["epoch_sweep_sharded_c"] = lambda: E.sweep_apply_kernel(
-        r0, sc, MAINNET, s0, rew, pen, got[0])
-    # (c) writes its results over its rewards and penalties: restore them
-    # before each call, outside the timed events
-    SETUPS["epoch_sweep_sharded_c"] = lambda: (rew.copy_(rew0),
-                                               pen.copy_(pen0))
+    calls["epoch_sweep_sharded_d4"] = lambda: E.epoch_sweep_sharded(
+        shards, sc, MAINNET)
+    sharded = {"epoch_sweep_sharded_d4": shards}
+    if hasattr(CV, "hot_proposers"):
+        # every attester's proposer among 32 validators, as in a mainnet
+        # epoch
+        reg_np = CV.synthetic_registry(n, seed=cs.SEED)
+        reg_np["proposer_index"] = CV.hot_proposers(n, cs.HOT_PROPOSERS,
+                                                    cs.SEED)
+        hot = CV.registry_to_torch(reg_np, dev)
+        sharded["epoch_sweep_sharded_d4_hot32"] = [
+            E.RegistryArrays(*(f[d * m:(d + 1) * m].clone() for f in hot))
+            for d in range(SHARDS_K24)]
+        calls["epoch_sweep_hot32"] = lambda: E.epoch_sweep_kernel(hot, sc,
+                                                                  MAINNET)
+        calls["epoch_sweep_sharded_d4_hot32"] = lambda: E.epoch_sweep_sharded(
+            sharded["epoch_sweep_sharded_d4_hot32"], sc, MAINNET)
+    if hasattr(E, "sweep_shares_kernel"):
+        # the three passes of shard 0, the collectives' outputs as inputs
+        r0 = shards[0]
+        parts = [E.sweep_totals_kernel(r, sc, n) for r in shards]
+        sums = CO.all_reduce_sum([s for s, _ in parts])
+        totals = [E.sweep_shares_kernel(r, sc, MAINNET, s, a)
+                  for r, s, (_, a) in zip(shards, sums, parts)]
+        got = CO.reduce_scatter_sum([a for _, a in parts])
+        acc0 = parts[0][1]
+        calls["k24_a_totals"] = lambda: E.sweep_totals_kernel(r0, sc, n)
+        calls["k24_b_shares"] = lambda: (E.sweep_shares_kernel(
+            r0, sc, MAINNET, sums[0], acc0), acc0)
+        # (b) adds into its accumulator: zero it before each call, outside
+        # the timed events
+        SETUPS["k24_b_shares"] = acc0.zero_
+        calls["k24_c_apply"] = lambda: E.sweep_apply_kernel(
+            r0, sc, MAINNET, totals[0], got[0])
     calls["incremental_step"] = step
 
     def after(ms: dict) -> dict:
@@ -219,6 +246,28 @@ def epoch_calls(cs, dev) -> tuple:
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         ms["incremental_step_wall_median"] = statistics.median(walls)
+        # K24's own device time in a whole sharded sweep: CUDA events
+        # around each of its 12 wrapper calls (`chip_smoke.py`'s record),
+        # the mean of REPS sweeps
+        wrappers = [(E, w) for w in ("sweep_totals_kernel",
+                                     "sweep_deltas_kernel",
+                                     "sweep_shares_kernel",
+                                     "sweep_apply_kernel") if hasattr(E, w)]
+        for name, regs in sharded.items():
+            ms[f"{name}_kernels"] = statistics.mean(
+                sum(cs.kernel_device_ms(
+                    lambda r=regs: E.epoch_sweep_sharded(r, sc, MAINNET),
+                    wrappers).values()) for _ in range(REPS))
+        if hasattr(E, "prelude_probe"):
+            total = int(E.sweep_totals_plain(reg, sc, n)[0][0])
+            cyc = [E.prelude_probe(total, sc, MAINNET, dev) for _ in range(3)]
+            print("K24 prelude probe (clock64 cycles of one warp, 3 runs: "
+                  "(b)'s square root and magic, the parent's per-block (b) "
+                  "and (c) derivations, (b)'s last block): "
+                  + json.dumps(cyc))
+            for k, name in enumerate(("k24_prelude_b", "parent_prelude_b",
+                                      "parent_prelude_c", "k24_last_block")):
+                ms[f"{name}_cycles"] = cyc[-1][k]
         return {"forest_layers": _digest(list(fb.layers) + list(fr.layers))}
 
     return calls, after
@@ -405,9 +454,33 @@ def fc_calls(cs, dev) -> dict:
 
     calls["fc_apply"] = lambda: FK.fc_apply_kernel(*(k[n] for n in names))
     SETUPS["fc_apply"] = restore
+    # B = 1024 (a path's batch of 1024 messages) on the same tables
+    x1 = FS.kernel_inputs(nb, nv, 1024, seed=cs.SEED)
+    k1, orig1 = on(x1), on(x1)
+
+    def restore1():
+        for n in ("lm_epoch", "lm_block", "node_weight"):
+            k1[n].copy_(orig1[n])
+
+    calls["fc_apply_1024"] = lambda: FK.fc_apply_kernel(
+        *(k1[n] for n in names))
+    SETUPS["fc_apply_1024"] = restore1
+    if hasattr(FK, "fc_grid_barrier_probe"):
+        for rows in (b, 1024):
+            for syncs in (0, 1):
+                name = f"fc_grid_barrier_probe_{rows}_{syncs}"
+                calls[name] = (lambda r=rows, y=syncs:
+                               FK.fc_grid_barrier_probe(r, y, dev))
+                REPS_FOR[name] = FC_REPS
+    for name in ("fc_apply", "fc_apply_1024"):
+        tabs = k if name == "fc_apply" else k1
+        DIGESTS[name] = lambda acc, t=tabs: _digest(
+            acc, *(t[n][:-1] for n in ("lm_epoch", "lm_block")),
+            t["node_weight"][:-1])
     calls["fc_refresh"] = lambda: FK.fc_refresh_kernel(
         orig["lm_block"], orig["balance"], nb)
-    REPS_FOR["fc_apply"] = REPS_FOR["fc_refresh"] = FC_REPS
+    for name in ("fc_apply", "fc_apply_1024", "fc_refresh"):
+        REPS_FOR[name] = FC_REPS
     return calls
 
 
@@ -554,7 +627,7 @@ def main() -> int:
             setup()
         digests[name] = DIGESTS.get(name, _digest)(fn())
         ms[name] = cs.device_ms(fn, REPS_FOR.get(name, REPS), setup)
-        if "fr" in groups or "fc" in groups:
+        if any(g in groups for g in ("fr", "fc", "epoch")):
             if setup:
                 setup()
             launches[name] = cuda_launches(cs, fn)

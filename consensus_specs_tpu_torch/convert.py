@@ -79,6 +79,16 @@ def synthetic_registry(n: int, seed: int = 0) -> dict:
     )
 
 
+def hot_proposers(n: int, count: int = 32, seed: int = 0) -> np.ndarray:
+    """(n,) int32 proposer indices drawn from `count` of n validators: a
+    phase0 mainnet epoch's attesters name at most 64 proposers (one a slot
+    of the two epochs whose blocks include their attestations), so the
+    proposer shares pile onto few rows."""
+    rng = np.random.RandomState(seed + 17)
+    hot = rng.choice(n, count, replace=False)
+    return hot[rng.randint(0, count, n)].astype(np.int32)
+
+
 def edge_registry(n: int, seed: int = 0, single_active: bool = False,
                   current_epoch: int = 100,
                   epochs_per_slashings_vector: int = 8192,

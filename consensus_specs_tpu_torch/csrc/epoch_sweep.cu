@@ -42,18 +42,24 @@
 //
 // K24, the sharded sweep (replaces parallel/partition.py:248
 // sharded_epoch_step's sweep: epoch.py:111 _total with lax.psum and the
-// proposer branch at :190-202), runs on each shard's rows with one
-// collective after each of its first two kernels, which the host performs
-// (parallel/collectives.py): (a) totals_kernel, the shard's four sums, are
-// all-reduced; (b) deltas_sharded_kernel stores each validator's own
-// rewards and penalties and adds the proposer's share into a zeroed
-// accumulator of n_local * D rows, indexed by the global proposer index
-// (the drop rule over the global length); the accumulators are
-// reduce-scattered; (c) apply_sharded_kernel adds the shard's reduced
-// slice to its rewards and applies.  (b) and (c) derive the grid-wide
-// values they use from the all-reduced sums once per block (warp 0), into
-// shared memory.
-// The per-validator bodies are K1's.
+// proposer branch at :190-202), is K1's pass split on each shard's rows,
+// with one collective after each of its first two kernels, which the host
+// performs (parallel/collectives.py), and no memset:
+//   (a) shard_totals_kernel: the shard's four sums, which are all-reduced,
+//       and a zero in each of the n_local * D rows of the shard's
+//       proposer accumulator; the last block writes the sums out and puts
+//       back the zeros of the accumulated sums and of its arrival counter
+//       (a per-device `ShardScratch`, zeroed once by the wrapper);
+//   (b) shard_shares_kernel: K1's proposer shares into the accumulator,
+//       indexed by the global proposer index (the drop rule over the
+//       global length); the accumulators are reduce-scattered.  Each
+//       block needs only the square root's magic, made by thread 0 while
+//       the block's loads are in flight; the last block derives every
+//       grid-wide value once (`Totals`, into a small per-shard buffer);
+//   (c) sweep_apply_kernel, K1's (c): the rewards and penalties in place,
+//       plus the shard's reduced slice of the accumulators, applied.
+// About 118 bytes move per local row besides the shares' atomics (28 in
+// (a), 14 in (b), 76 in (c)), and 8 D a row of the accumulator's zeroes.
 //
 // Bound on an H100: device memory.  The sweep must read 56 bytes of inputs
 // and write 16 per validator; the proposer scatter is random.
@@ -79,28 +85,44 @@ struct Div {
   unsigned sh1, sh2;
 };
 
-// floor(hi * 2**64 / d) for hi < d: restoring division, one bit a step.
+__host__ __device__ inline int clz64(u64 x) {
+#ifdef __CUDA_ARCH__
+  return __clzll((long long)x);
+#else
+  return x ? __builtin_clzll(x) : 64;
+#endif
+}
+
+// floor(hi * 2**64 / d) for hi < d: Knuth's algorithm D on two 32-bit
+// digits (Hacker's Delight, divlu), the divisor normalised so that its top
+// bit is set; each digit's estimate from a 64 / 32-bit quotient, corrected
+// at most twice.  A few hundred cycles, against some 2,000 for a 64-step
+// restoring loop.
 __host__ __device__ inline u64 div_hi(u64 hi, u64 d) {
-  u64 q = 0;
-  for (int i = 0; i < 64; ++i) {
-    u64 top = hi >> 63;
-    hi <<= 1;
-    q <<= 1;
-    if (top || hi >= d) {
-      hi -= d;
-      q |= 1;
-    }
+  const u64 b = 1ull << 32;
+  const int s = clz64(d);
+  d <<= s;
+  const u64 vn1 = d >> 32, vn0 = d & 0xffffffffull;
+  const u64 un32 = hi << s;                  // hi < d: nothing shifts out
+  u64 q1 = un32 / vn1, rhat = un32 - q1 * vn1;
+  while (q1 >= b || q1 * vn0 > b * rhat) {
+    q1 -= 1;
+    rhat += vn1;
+    if (rhat >= b) break;
   }
-  return q;
+  const u64 un21 = un32 * b - q1 * d;        // mod 2**64: the remainder
+  u64 q0 = un21 / vn1;
+  rhat = un21 - q0 * vn1;
+  while (q0 >= b || q0 * vn0 > b * rhat) {
+    q0 -= 1;
+    rhat += vn1;
+    if (rhat >= b) break;
+  }
+  return q1 * b + q0;
 }
 
 __host__ __device__ inline unsigned ceil_log2(u64 d) {
-  if (d <= 1) return 0;
-#ifdef __CUDA_ARCH__
-  return 64 - __clzll((long long)(d - 1));
-#else
-  return 64 - __builtin_clzll(d - 1);
-#endif
+  return d <= 1 ? 0 : 64 - clz64(d - 1);
 }
 
 __host__ __device__ inline Div make_div(u64 d) {
@@ -139,10 +161,23 @@ struct Consts {
   int in_leak, genesis;
 };
 
-// The grid-wide values of one sweep, from the four global sums.
+// The grid-wide values of one sweep, from the four global sums.  K24 hands
+// them from (b) to (c) as kTotalsWords int64 words (TOTALS_WORDS in
+// parallel/epoch.py, whose plain phases write the same words): the seven
+// values, then each magic as m and sh1 | sh2 << 32.
 struct Totals {
   u64 total_active, sqrt_total, total_incr, att_q[3], adj;
   Div by_sqrt, by_total_incr, by_total_active;
+};
+constexpr int kTotalsWords = 13;
+static_assert(sizeof(Totals) == kTotalsWords * 8, "Totals' layout");
+
+// K24's scratch on a device: the sums' accumulators and the arrival
+// counters of (a) and (b), zero between launches (each launch's last block
+// puts back the zeros it found).
+struct ShardScratch {
+  u64 sums[4];
+  unsigned arrived_totals, arrived_shares;
 };
 
 // K1's device scratch: the sums and arrival counter (zeroed by the
@@ -267,22 +302,25 @@ __device__ __forceinline__ void block_sum4(u64 s[4]) {
 // --- (a): the four sums -------------------------------------------------------
 
 // sums[0] = sum of effective balances of validators active this epoch;
-// sums[1..3] = sums over unslashed source / target / head attesters.
-// kFinish (K1): also zero acc's rows, and the last block derives the totals.
-template <bool kFinish>
-__device__ __forceinline__ void totals_body(const u64* __restrict__ eff,
-                                            const uint8_t* __restrict__ slashed,
-                                            const u64* __restrict__ act,
-                                            const u64* __restrict__ exit_e,
-                                            const uint8_t* __restrict__ src,
-                                            const uint8_t* __restrict__ tgt,
-                                            const uint8_t* __restrict__ head, long long n,
-                                            u64 cur, u64* sums, u64* acc, Scratch* scratch,
-                                            Consts c) {
-  u64 s[4] = {0, 0, 0, 0};
+// sums[1..3] = sums over unslashed source / target / head attesters: the
+// block's, reduced into thread 0's s[].  Also a zero in each of acc's
+// n_acc rows: beside the sums where n_acc is the registry's length
+// (kZeroBeside, K1's new_balance), in a loop of its own otherwise (K24's
+// accumulator of n_local * D rows).
+template <bool kZeroBeside>
+__device__ __forceinline__ void block_sums(const u64* __restrict__ eff,
+                                           const uint8_t* __restrict__ slashed,
+                                           const u64* __restrict__ act,
+                                           const u64* __restrict__ exit_e,
+                                           const uint8_t* __restrict__ src,
+                                           const uint8_t* __restrict__ tgt,
+                                           const uint8_t* __restrict__ head, long long n,
+                                           u64 cur, u64* acc, long long n_acc, u64 s[4]) {
   const u64 zero[kPer] = {0, 0, 0, 0};
+  const long long stride = kPer * (long long)gridDim.x * blockDim.x;
+  s[0] = s[1] = s[2] = s[3] = 0;
   for (long long i = kPer * (blockIdx.x * (long long)blockDim.x + threadIdx.x); i < n;
-       i += kPer * (long long)gridDim.x * blockDim.x) {
+       i += stride) {
     u64 e[kPer], a[kPer], x[kPer];
     ld4(eff, i, n, e);
     ld4(act, i, n, a);
@@ -297,34 +335,34 @@ __device__ __forceinline__ void totals_body(const u64* __restrict__ eff,
       if (bit(ft, k) && uns) s[2] += e[k];
       if (bit(fh, k) && uns) s[3] += e[k];
     }
-    if (kFinish) st4(acc, i, n, zero);
+    if (kZeroBeside) st4(acc, i, n, zero);
   }
+  if (!kZeroBeside)
+    for (long long i = kPer * (blockIdx.x * (long long)blockDim.x + threadIdx.x); i < n_acc;
+         i += stride)
+      st4(acc, i, n_acc, zero);
   block_sum4(s);
-  if (!kFinish) {
-    if (threadIdx.x == 0)
-      for (int k = 0; k < 4; ++k) atomicAdd(&sums[k], s[k]);
-    return;
-  }
+}
+
+// Whether this block is the last of its launch to arrive, in every thread
+// of the block: thread 0 adds the block's sums s[] into acc_sums (where
+// given), fences, and counts the block in at *arrived.
+__device__ __forceinline__ bool arrive_last(const u64 s[4], u64* acc_sums, unsigned* arrived) {
   __shared__ bool last;
   if (threadIdx.x == 0) {
-    for (int k = 0; k < 4; ++k) atomicAdd(&scratch->sums[k], s[k]);
+    if (acc_sums)
+      for (int k = 0; k < 4; ++k) atomicAdd(&acc_sums[k], s[k]);
     __threadfence();
-    last = atomicAdd(&scratch->arrived, 1u) == gridDim.x - 1;
+    last = atomicAdd(arrived, 1u) == gridDim.x - 1;
   }
   __syncthreads();
-  if (last && threadIdx.x < 32) {
-    __threadfence();
-    u64 total[4];
-    for (int k = 0; k < 4; ++k) total[k] = atomicAdd(&scratch->sums[k], 0ull);
-    Totals t = derive<true, true>(total, c);
-    if (threadIdx.x == 0) scratch->t = t;
-  }
+  return last;
 }
 
 // --- the per-validator bodies ----------------------------------------------------
 
-__device__ __forceinline__ u64 base_reward(u64 e, const Consts& c, const Totals& t) {
-  return divide(divide(e * c.brf, t.by_sqrt), c.by_brpe);
+__device__ __forceinline__ u64 base_reward(u64 e, const Consts& c, const Div& by_sqrt) {
+  return divide(divide(e * c.brf, by_sqrt), c.by_brpe);
 }
 
 // (base - prop) / max(delay, 1): the one divisor that changes per validator
@@ -351,7 +389,7 @@ __device__ __forceinline__ void deltas4(unsigned sl, const u64* __restrict__ act
   for (int k = 0; k < kPer; ++k) {
     bool s = bit(sl, k);
     bool eligible = (a[k] <= c.prev && c.prev < x[k]) || (s && c.prev + 1 < w[k]);
-    u64 base = base_reward(e[k], c, t);
+    u64 base = base_reward(e[k], c, t.by_sqrt);
     u64 prop = divide(base, c.by_prq);
     bool flag[3] = {bit(fs, k) && !s, bit(ft, k) && !s, bit(fh, k) && !s};
     u64 r = 0, p = 0;
@@ -371,21 +409,20 @@ __device__ __forceinline__ void deltas4(unsigned sl, const u64* __restrict__ act
   }
 }
 
-// The proposer shares of rows i .. i + 3 into acc (n_prop rows).  JAX
-// .at[idx].add(mode="drop"): a negative index counts from the end, and an
-// index still outside [0, n_prop) is dropped.
+// The proposer shares of rows i .. i + 3 (their proposers pj) into acc
+// (n_prop rows).  JAX .at[idx].add(mode="drop"): a negative index counts
+// from the end, and an index still outside [0, n_prop) is dropped.
 __device__ __forceinline__ void shares4(const u64 e[kPer], unsigned sl, unsigned fs,
-                                        const int32_t* __restrict__ proposer, long long i,
-                                        long long n, const Consts& c, const Totals& t,
-                                        long long n_prop, u64* acc) {
-  int32_t pj[kPer];
-  ld4_i32(proposer, i, n, pj);
+                                        const int32_t pj[kPer], long long i, long long n,
+                                        const Consts& c, const Div& by_sqrt, long long n_prop,
+                                        u64* acc) {
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
     if (i + k >= n || !bit(fs, k) || bit(sl, k)) continue;
     long long j = pj[k];
     if (j < 0) j += n_prop;
-    if (j >= 0 && j < n_prop) atomicAdd(&acc[j], divide(base_reward(e[k], c, t), c.by_prq));
+    if (j >= 0 && j < n_prop)
+      atomicAdd(&acc[j], divide(base_reward(e[k], c, by_sqrt), c.by_prq));
   }
 }
 
@@ -427,8 +464,15 @@ __global__ void __launch_bounds__(kThreads)
                         const uint8_t* __restrict__ src, const uint8_t* __restrict__ tgt,
                         const uint8_t* __restrict__ head, long long n, Consts c,
                         u64* new_bal, Scratch* scratch) {
-  totals_body<true>(eff, slashed, act, exit_e, src, tgt, head, n, c.cur, nullptr, new_bal,
-                    scratch, c);
+  u64 s[4];
+  block_sums<true>(eff, slashed, act, exit_e, src, tgt, head, n, c.cur, new_bal, n, s);
+  if (arrive_last(s, scratch->sums, &scratch->arrived) && threadIdx.x < 32) {
+    __threadfence();
+    u64 total[4];
+    for (int k = 0; k < 4; ++k) total[k] = atomicAdd(&scratch->sums[k], 0ull);
+    Totals t = derive<true, true>(total, c);
+    if (threadIdx.x == 0) scratch->t = t;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -438,29 +482,33 @@ __global__ void __launch_bounds__(kThreads)
                         u64* new_bal) {
   long long i = first_row();
   if (i >= n) return;
-  const Totals t = scratch->t;
+  const Div by_sqrt = scratch->t.by_sqrt;
   u64 e[kPer];
+  int32_t pj[kPer];
   ld4(eff, i, n, e);
-  shares4(e, ld4_u8(slashed, i, n), ld4_u8(src, i, n), proposer, i, n, c, t, n, new_bal);
+  ld4_i32(proposer, i, n, pj);
+  shares4(e, ld4_u8(slashed, i, n), ld4_u8(src, i, n), pj, i, n, c, by_sqrt, n, new_bal);
 }
 
+// K1's (c) and K24's: received holds the proposer shares each row received
+// (K1: new_bal itself, which (a) zeroed and (b) accumulated into).
 __global__ void __launch_bounds__(kThreads)
     sweep_apply_kernel(const u64* __restrict__ bal, const u64* __restrict__ eff,
                        const uint8_t* __restrict__ slashed, const u64* __restrict__ act,
                        const u64* __restrict__ exit_e, const u64* __restrict__ wd,
                        const uint8_t* __restrict__ src, const uint8_t* __restrict__ tgt,
                        const uint8_t* __restrict__ head, const u64* __restrict__ delay,
-                       long long n, Consts c, const Scratch* __restrict__ scratch,
-                       u64* new_bal, u64* __restrict__ new_eff) {
+                       long long n, Consts c, const Totals* __restrict__ totals,
+                       const u64* received, u64* new_bal, u64* __restrict__ new_eff) {
   long long i = first_row();
   if (i >= n) return;
-  const Totals t = scratch->t;
+  const Totals t = *totals;
   u64 e[kPer], rew[kPer], pen[kPer], got[kPer], nb[kPer], ne[kPer];
   ld4(eff, i, n, e);
   unsigned sl = ld4_u8(slashed, i, n);
   deltas4(sl, act, exit_e, wd, ld4_u8(src, i, n), ld4_u8(tgt, i, n), ld4_u8(head, i, n), delay,
           i, n, c, t, e, rew, pen);
-  ld4_rw(new_bal, i, n, got);
+  ld4_rw(received, i, n, got);
 #pragma unroll
   for (int k = 0; k < kPer; ++k) rew[k] += got[k];
   apply4(bal, e, sl, wd, i, n, c, t, rew, pen, nb, ne);
@@ -470,70 +518,83 @@ __global__ void __launch_bounds__(kThreads)
 
 // --- K24 --------------------------------------------------------------------------
 
+// (a): the shard's sums into sums (4 u64) and zeros into acc's n_acc rows.
 __global__ void __launch_bounds__(kThreads)
-    totals_kernel(const u64* __restrict__ eff, const uint8_t* __restrict__ slashed,
-                  const u64* __restrict__ act, const u64* __restrict__ exit_e,
-                  const uint8_t* __restrict__ src, const uint8_t* __restrict__ tgt,
-                  const uint8_t* __restrict__ head, long long n, u64 cur, u64* sums) {
-  totals_body<false>(eff, slashed, act, exit_e, src, tgt, head, n, cur, sums, nullptr,
-                     nullptr, Consts());
-}
-
-// The totals from the all-reduced sums, once per block into shared memory.
-template <bool kDeltas, bool kApply>
-__device__ __forceinline__ Totals block_totals(const u64* __restrict__ sums, const Consts& c) {
-  __shared__ Totals shared;
-  if (threadIdx.x < 32) {
-    u64 s[4] = {sums[0], sums[1], sums[2], sums[3]};
-    Totals t = derive<kDeltas, kApply>(s, c);
-    if (threadIdx.x == 0) shared = t;
+    shard_totals_kernel(const u64* __restrict__ eff, const uint8_t* __restrict__ slashed,
+                        const u64* __restrict__ act, const u64* __restrict__ exit_e,
+                        const uint8_t* __restrict__ src, const uint8_t* __restrict__ tgt,
+                        const uint8_t* __restrict__ head, long long n, u64 cur, u64* acc,
+                        long long n_acc, ShardScratch* scratch, u64* __restrict__ sums) {
+  u64 s[4];
+  block_sums<false>(eff, slashed, act, exit_e, src, tgt, head, n, cur, acc, n_acc, s);
+  if (arrive_last(s, scratch->sums, &scratch->arrived_totals) && threadIdx.x == 0) {
+    __threadfence();
+    for (int k = 0; k < 4; ++k) sums[k] = atomicExch(&scratch->sums[k], 0ull);
+    atomicExch(&scratch->arrived_totals, 0u);
   }
+}
+
+// (b): the shares of the shard's rows into acc (n_global rows) from the
+// all-reduced sums; the last block writes the grid-wide values to totals.
+__global__ void __launch_bounds__(kThreads)
+    shard_shares_kernel(const u64* __restrict__ eff, const uint8_t* __restrict__ slashed,
+                        const uint8_t* __restrict__ src, const int32_t* __restrict__ proposer,
+                        long long n, Consts c, const u64* __restrict__ sums,
+                        long long n_global, u64* acc, ShardScratch* scratch,
+                        Totals* __restrict__ totals) {
+  const long long i = first_row();
+  const bool live = i < n;
+  u64 e[kPer] = {0, 0, 0, 0};
+  int32_t pj[kPer] = {0, 0, 0, 0};
+  unsigned sl = 0, fs = 0;
+  if (live) {   // in flight while thread 0 makes the magic
+    ld4(eff, i, n, e);
+    ld4_i32(proposer, i, n, pj);
+    sl = ld4_u8(slashed, i, n);
+    fs = ld4_u8(src, i, n);
+  }
+  __shared__ Div by_sqrt;
+  if (threadIdx.x == 0) by_sqrt = make_div(isqrt_u64(umax(c.incr, sums[0])));
   __syncthreads();
-  return shared;
+  if (live) shares4(e, sl, fs, pj, i, n, c, by_sqrt, n_global, acc);
+  const u64 none[4] = {0, 0, 0, 0};
+  if (arrive_last(none, nullptr, &scratch->arrived_shares) && threadIdx.x < 32) {
+    u64 s[4] = {sums[0], sums[1], sums[2], sums[3]};
+    Totals t = derive<true, true>(s, c);
+    if (threadIdx.x == 0) {
+      *totals = t;
+      atomicExch(&scratch->arrived_shares, 0u);
+    }
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    deltas_sharded_kernel(const u64* __restrict__ eff, const uint8_t* __restrict__ slashed,
-                          const u64* __restrict__ act, const u64* __restrict__ exit_e,
-                          const u64* __restrict__ wd, const uint8_t* __restrict__ src,
-                          const uint8_t* __restrict__ tgt, const uint8_t* __restrict__ head,
-                          const u64* __restrict__ delay, const int32_t* __restrict__ proposer,
-                          long long n, Consts c, const u64* __restrict__ sums,
-                          u64* __restrict__ rewards, u64* __restrict__ penalties,
-                          long long n_global, u64* acc) {
-  const Totals t = block_totals<true, false>(sums, c);
-  long long i = first_row();
-  if (i >= n) return;
-  u64 e[kPer], rew[kPer], pen[kPer];
-  ld4(eff, i, n, e);
-  unsigned sl = ld4_u8(slashed, i, n), fs = ld4_u8(src, i, n);
-  deltas4(sl, act, exit_e, wd, fs, ld4_u8(tgt, i, n), ld4_u8(head, i, n), delay, i, n, c, t, e,
-          rew, pen);
-  shares4(e, sl, fs, proposer, i, n, c, t, n_global, acc);
-  st4(rewards, i, n, rew);
-  st4(penalties, i, n, pen);
-}
-
-// new_bal holds the shard's rewards and new_eff its penalties on entry
-// (the buffers of (b)); received is its reduced slice of the accumulators.
-__global__ void __launch_bounds__(kThreads)
-    apply_sharded_kernel(const u64* __restrict__ bal, const u64* __restrict__ eff,
-                         const uint8_t* __restrict__ slashed, const u64* __restrict__ wd,
-                         long long n, Consts c, const u64* __restrict__ sums, u64* new_bal,
-                         u64* new_eff, const u64* __restrict__ received) {
-  const Totals t = block_totals<false, true>(sums, c);
-  long long i = first_row();
-  if (i >= n) return;
-  u64 e[kPer], rew[kPer], pen[kPer], got[kPer], nb[kPer], ne[kPer];
-  ld4(eff, i, n, e);
-  ld4_rw(new_bal, i, n, rew);
-  ld4_rw(new_eff, i, n, pen);
-  ld4(received, i, n, got);
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) rew[k] += got[k];
-  apply4(bal, e, ld4_u8(slashed, i, n), wd, i, n, c, t, rew, pen, nb, ne);
-  st4(new_bal, i, n, nb);
-  st4(new_eff, i, n, ne);
+// A probe, on no path: clock64() cycles of one block's prelude in (b)
+// (thread 0's square root and its magic), of the per-block derivations of
+// the parent design's (b) and (c) by warp 0, and of the last block's
+// whole derivation, for the all-reduced active balance `total`.
+__global__ void prelude_probe_kernel(u64 total, Consts c, long long* out) {
+  const u64 s[4] = {total, total, total, total};
+  long long t0 = clock64();
+  Div by_sqrt = {};
+  if (threadIdx.x == 0) by_sqrt = make_div(isqrt_u64(umax(c.incr, total)));
+  __syncwarp();
+  long long t1 = clock64();
+  Totals d = derive<true, false>(s, c);
+  __syncwarp();
+  long long t2 = clock64();
+  Totals a = derive<false, true>(s, c);
+  __syncwarp();
+  long long t3 = clock64();
+  Totals f = derive<true, true>(s, c);
+  __syncwarp();
+  long long t4 = clock64();
+  if (threadIdx.x == 0) {
+    out[0] = t1 - t0;
+    out[1] = t2 - t1;
+    out[2] = t3 - t2;
+    out[3] = t4 - t3;
+    out[4] = (long long)(by_sqrt.m ^ d.by_sqrt.m ^ a.by_total_active.m ^ f.by_total_incr.m);
+  }
 }
 
 // --- host side --------------------------------------------------------------------
@@ -610,57 +671,66 @@ extern "C" int epoch_sweep_launch(const void* bal, const void* eff, const void* 
   if (err != cudaSuccess) return (int)err;
   sweep_apply_kernel<<<grid_for(n), kThreads, 0, s>>>(
       (const u64*)bal, e, sl, (const u64*)act, (const u64*)exit_e, (const u64*)wd, fs,
-      (const uint8_t*)tgt, (const uint8_t*)head, (const u64*)delay, n, c, sc, (u64*)new_bal,
-      (u64*)new_eff);
+      (const uint8_t*)tgt, (const uint8_t*)head, (const u64*)delay, n, c, &sc->t,
+      (const u64*)new_bal, (u64*)new_bal, (u64*)new_eff);
   return (int)cudaGetLastError();
 }
 
-// K24 (a): the shard's four sums into sums (4 u64, zeroed here).
-extern "C" int epoch_totals_launch(const void* eff, const void* slashed, const void* act,
-                                   const void* exit_e, const void* src, const void* tgt,
-                                   const void* head, long long n, unsigned long long cur,
-                                   void* sums, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(sums, 0, 4 * sizeof(u64), s);
-  if (err != cudaSuccess) return (int)err;
-  totals_kernel<<<totals_grid(n), kThreads, 0, s>>>(
+// Bytes of K24's per-device scratch, zero on entry to and return from
+// each of its launches.
+extern "C" long long epoch_shard_scratch_bytes() { return (long long)sizeof(ShardScratch); }
+
+// K24 (a): the shard's four sums into sums (4 u64) and zeros into acc's
+// n_acc rows (the shard's accumulator of (b)).
+extern "C" int epoch_shard_totals_launch(const void* eff, const void* slashed, const void* act,
+                                         const void* exit_e, const void* src, const void* tgt,
+                                         const void* head, long long n, unsigned long long cur,
+                                         void* acc, long long n_acc, void* scratch, void* sums,
+                                         void* stream) {
+  shard_totals_kernel<<<totals_grid(n), kThreads, 0, (cudaStream_t)stream>>>(
       (const u64*)eff, (const uint8_t*)slashed, (const u64*)act, (const u64*)exit_e,
-      (const uint8_t*)src, (const uint8_t*)tgt, (const uint8_t*)head, n, cur, (u64*)sums);
+      (const uint8_t*)src, (const uint8_t*)tgt, (const uint8_t*)head, n, cur, (u64*)acc, n_acc,
+      (ShardScratch*)scratch, (u64*)sums);
   return (int)cudaGetLastError();
 }
 
-// K24 (b): from the all-reduced sums, the shard's rewards (stored into
-// rewards) and penalties, and the proposers' shares added into acc
-// (n_global u64, zeroed here) at their global indices.
-extern "C" int epoch_deltas_sharded_launch(const void* eff, const void* slashed, const void* act,
-                                           const void* exit_e, const void* wd, const void* src,
-                                           const void* tgt, const void* head, const void* delay,
-                                           const void* proposer, long long n, long long n_global,
-                                           const u64* params, const u64* scalars,
-                                           const void* sums, void* rewards, void* penalties,
-                                           void* acc, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(acc, 0, n_global * sizeof(u64), s);
-  if (err != cudaSuccess) return (int)err;
-  deltas_sharded_kernel<<<grid_for(n), kThreads, 0, s>>>(
-      (const u64*)eff, (const uint8_t*)slashed, (const u64*)act, (const u64*)exit_e,
-      (const u64*)wd, (const uint8_t*)src, (const uint8_t*)tgt, (const uint8_t*)head,
-      (const u64*)delay, (const int32_t*)proposer, n, make_consts(params, scalars),
-      (const u64*)sums, (u64*)rewards, (u64*)penalties, n_global, (u64*)acc);
+// K24 (b): from the all-reduced sums, the proposers' shares of the shard's
+// rows added into acc (n_global u64, zeroed by (a)) at their global
+// indices, and the grid-wide values into totals (kTotalsWords u64).
+extern "C" int epoch_shard_shares_launch(const void* eff, const void* slashed, const void* src,
+                                         const void* proposer, long long n, long long n_global,
+                                         const u64* params, const u64* scalars,
+                                         const void* sums, void* acc, void* scratch,
+                                         void* totals, void* stream) {
+  shard_shares_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const u64*)eff, (const uint8_t*)slashed, (const uint8_t*)src, (const int32_t*)proposer,
+      n, make_consts(params, scalars), (const u64*)sums, n_global, (u64*)acc,
+      (ShardScratch*)scratch, (Totals*)totals);
   return (int)cudaGetLastError();
 }
 
-// K24 (c): new_bal holds the shard's rewards and new_eff its penalties on
-// entry (the buffers of (b)); received is its reduced slice of the
-// accumulators.  Both are overwritten with the results.
-extern "C" int epoch_apply_sharded_launch(const void* bal, const void* eff, const void* slashed,
-                                          const void* wd, long long n, const u64* params,
-                                          const u64* scalars, const void* sums,
-                                          const void* received, void* new_bal, void* new_eff,
-                                          void* stream) {
-  apply_sharded_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const u64*)bal, (const u64*)eff, (const uint8_t*)slashed, (const u64*)wd, n,
-      make_consts(params, scalars), (const u64*)sums, (u64*)new_bal, (u64*)new_eff,
-      (const u64*)received);
+// K24 (c): K1's (c) on the shard from the totals of (b) and its reduced
+// slice of the accumulators, received.
+extern "C" int epoch_shard_apply_launch(const void* bal, const void* eff, const void* slashed,
+                                        const void* act, const void* exit_e, const void* wd,
+                                        const void* src, const void* tgt, const void* head,
+                                        const void* delay, long long n, const u64* params,
+                                        const u64* scalars, const void* totals,
+                                        const void* received, void* new_bal, void* new_eff,
+                                        void* stream) {
+  sweep_apply_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const u64*)bal, (const u64*)eff, (const uint8_t*)slashed, (const u64*)act,
+      (const u64*)exit_e, (const u64*)wd, (const uint8_t*)src, (const uint8_t*)tgt,
+      (const uint8_t*)head, (const u64*)delay, n, make_consts(params, scalars),
+      (const Totals*)totals, (const u64*)received, (u64*)new_bal, (u64*)new_eff);
+  return (int)cudaGetLastError();
+}
+
+// The prelude probe (on no path): out receives 5 int64 (the cycles of the
+// four derivations, a checksum).
+extern "C" int epoch_prelude_probe_launch(unsigned long long total, const u64* params,
+                                          const u64* scalars, void* out, void* stream) {
+  prelude_probe_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(total, make_consts(params, scalars),
+                                                           (long long*)out);
   return (int)cudaGetLastError();
 }

@@ -9,24 +9,34 @@
 // K21 fc_apply replaces consensus_specs_tpu/forkchoice/kernels.py:75
 // _apply_kernel: a batch of B latest-message candidates folds into the
 // latest-message table (lm_epoch, lm_block) and the block weights in
-// place, in three launches on one stream:
-//   1. best[val_idx[i]] = -1 for every row (only the entries the batch
-//      reads are reset, not all V + 1);
-//   2. atomicMax(best[val_idx[i]], epoch * B + (B - 1 - i)): the winner
+// place, in one cooperative launch of grid-stride rows:
+//   1. atomicMax(best[val_idx[i]], epoch * B + (B - 1 - i)): the winner
 //      key of each validator (highest epoch, then earliest row);
-//   3. one thread per row: accept = winner && epoch >= 0 && epoch >
-//      lm_epoch[v] && can_update[v]; an accepted row writes lm_epoch[v]
-//      and lm_block[v] and moves its balance from the old vote block to
-//      the new one with two atomic adds; every row writes its accept bit.
-// Updating the table in place is safe: the keys are distinct (they hold
-// the row), so at most one row per validator is the winner, and only an
-// accepted winner writes its validator's slot, after reading the old
-// values.  A losing row of the same validator may read the slot while it
-// is written, but its accept is already false and nothing it read is
-// used.  Bound on an H100: bytes, and what this batch touches (the batch
-// rows, the table entries of its validators, the weights of its blocks),
-// about 50 bytes a row; at B = 16384 the three launches' latency is the
-// time.
+//   -- one grid barrier --
+//   2. per row: accept = winner && epoch >= 0 && epoch > lm_epoch[v] &&
+//      can_update[v]; an accepted row writes lm_epoch[v] and lm_block[v]
+//      and moves its balance from the old vote block to the new one with
+//      two atomic adds; every row writes its accept bit.
+// best is a winner-key table of V + 1 slots that the wrapper keeps per
+// device, stream and size, filled with -1 once; it is all -1 between
+// launches, so no launch resets it: in step 2 the row whose key equals
+// best[v] with epoch >= 0 (the winner) writes -1 back, whether or not it is
+// accepted.  A losing row of v with epoch >= 0 compares its own key (>= 0
+// and not the winner's: the keys hold the row) with what it reads, the
+// winner's key or -1, and rejects either; a row with epoch < 0 (the
+// padded rows among them) is rejected before it reads, and its key, below
+// 0, leaves a slot at -1 in step 1.  (A variant without the table, its
+// scratch reset in a step of its own before a second barrier, was
+// 1.2-1.5 us slower on the H100: PERF.md.)
+// Updating the table in place is safe: the keys are distinct, so at most
+// one row per validator is the winner, and only an accepted winner writes
+// its validator's slot, after reading the old values; a loser reads none.
+// The grid is a block a 256 rows, at most what the card holds at once
+// (grid-stride rows past that).
+// Bound on an H100: bytes, and what this batch touches (the batch rows,
+// the table entries of its validators, the weights of its blocks), about
+// 50 bytes a row; at B = 16384 the time is one cooperative launch and its
+// barrier (fc_grid_barrier_probe times both).
 //
 // K22 fc_refresh replaces kernels.py:130 _refresh_kernel: out[b] = the sum
 // of balance[v] over the validators with lm_block[v] == b.  One thread
@@ -67,6 +77,7 @@
 // The rounds' 64-bit shared atomics are the compiler's compare-and-swap
 // loops (Hopper has no 64-bit shared atomic add or max); two 32-bit adds
 // with the carry, or a CAS loop of our own, were slower.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -77,6 +88,8 @@
 #endif
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 
@@ -92,50 +105,47 @@ __device__ __forceinline__ void add_i64(long long* p, long long v) {
 
 // --- K21 -------------------------------------------------------------------
 
-__global__ void fc_reset_best_kernel(const int* __restrict__ val_idx,
-                                     long long* __restrict__ best, int b) {
-  long long i = lane();
-  if (i < b) best[val_idx[i]] = -1;
-}
-
-__global__ void fc_best_kernel(const int* __restrict__ val_idx,
-                               const long long* __restrict__ att_epoch,
-                               long long* __restrict__ best, int b) {
-  long long i = lane();
-  if (i >= b) return;
-  long long key = att_epoch[i] * b + (b - 1 - i);
-  atomicMax(&best[val_idx[i]], key);
-}
-
-__global__ void fc_accept_kernel(const int* __restrict__ val_idx,
-                                 const long long* __restrict__ att_epoch,
-                                 const int* __restrict__ att_block,
-                                 long long* lm_epoch, int* lm_block,
-                                 const long long* __restrict__ balance,
-                                 const bool* __restrict__ can_update,
-                                 long long* node_weight,
-                                 const long long* __restrict__ best,
-                                 bool* __restrict__ accept, int b, int nb_pad) {
-  long long i = lane();
-  if (i >= b) return;
-  int v = val_idx[i];
-  long long ep = att_epoch[i];
-  bool ok = best[v] == ep * b + (b - 1 - i) && ep >= 0;
-  // only the winner row of v gets past here; it reads v's slot before it
-  // writes it
-  ok = ok && ep > lm_epoch[v] && can_update[v];
-  accept[i] = ok;
-  if (i == 0) node_weight[nb_pad] = 0;
-  if (!ok) return;
-  int old_block = lm_block[v];
-  int new_block = att_block[i];
-  long long bal = balance[v];
-  lm_epoch[v] = ep;
-  lm_block[v] = new_block;
-  if (bal != 0) {
-    if (old_block >= 0) add_i64(&node_weight[old_block], -bal);
-    add_i64(&node_weight[new_block], bal);
+__global__ void __launch_bounds__(kThreads)
+    fc_apply_kernel(const int* __restrict__ val_idx, const long long* __restrict__ att_epoch,
+                    const int* __restrict__ att_block, long long* lm_epoch, int* lm_block,
+                    const long long* __restrict__ balance, const bool* __restrict__ can_update,
+                    long long* node_weight, long long* best, bool* __restrict__ accept, int b,
+                    int nb_pad) {
+  cg::grid_group grid = cg::this_grid();
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = lane(); i < b; i += stride)
+    atomicMax(&best[val_idx[i]], att_epoch[i] * b + (b - 1 - i));
+  grid.sync();
+  if (lane() == 0) node_weight[nb_pad] = 0;
+  for (long long i = lane(); i < b; i += stride) {
+    const int v = val_idx[i];
+    const long long ep = att_epoch[i];
+    // best[v] through L2: the atomics of step 1 and, across launches, the
+    // winners' -1 were written there
+    bool ok = ep >= 0 && __ldcg(&best[v]) == ep * b + (b - 1 - i);
+    if (ok) best[v] = -1;
+    // only the winner row of v gets past here; it reads v's slot before it
+    // writes it
+    ok = ok && ep > lm_epoch[v] && can_update[v];
+    accept[i] = ok;
+    if (!ok) continue;
+    const int old_block = lm_block[v];
+    const int new_block = att_block[i];
+    const long long bal = balance[v];
+    lm_epoch[v] = ep;
+    lm_block[v] = new_block;
+    if (bal != 0) {
+      if (old_block >= 0) add_i64(&node_weight[old_block], -bal);
+      add_i64(&node_weight[new_block], bal);
+    }
   }
+}
+
+// An empty cooperative launch with n grid barriers (fc_grid_barrier_probe).
+__global__ void __launch_bounds__(kThreads) fc_grid_barrier_kernel(int n, int* out) {
+  cg::grid_group grid = cg::this_grid();
+  for (int k = 0; k < n; ++k) grid.sync();
+  if (lane() == 0) *out = n;
 }
 
 // --- K22 -------------------------------------------------------------------
@@ -383,23 +393,60 @@ int head_allow_shared(size_t shm) {
   return err;
 }
 
+// Blocks of kThreads that the card holds at once for the cooperative
+// kernel, once a device and kernel
+int coop_blocks[kMaxDevices][2];
+
+int coop_grid(const void* kernel, int which, long long rows, int* grid) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!coop_blocks[dev][which]) {
+    int coop = 0, sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (!err && !coop) err = cudaErrorNotSupported;
+    if (!err) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (!err) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    if (err) return err;
+    coop_blocks[dev][which] = per_sm * sms;
+  }
+  long long need = (rows + kThreads - 1) / kThreads;
+  *grid = (int)(need < 1 ? 1 : need < coop_blocks[dev][which] ? need : coop_blocks[dev][which]);
+  return 0;
+}
+
 }  // namespace
 
+// K21: best is the winner-key table (V + 1 int64, all -1 on entry and on
+// return).
 extern "C" int fc_apply_launch(const void* val_idx, const void* att_epoch,
                                const void* att_block, void* lm_epoch, void* lm_block,
                                const void* balance, const void* can_update,
                                void* node_weight, void* best, void* accept, int b,
                                int nb_pad, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  fc_reset_best_kernel<<<blocks_for(b), kThreads, 0, st>>>((const int*)val_idx,
-                                                          (long long*)best, b);
-  fc_best_kernel<<<blocks_for(b), kThreads, 0, st>>>(
-      (const int*)val_idx, (const long long*)att_epoch, (long long*)best, b);
-  fc_accept_kernel<<<blocks_for(b), kThreads, 0, st>>>(
-      (const int*)val_idx, (const long long*)att_epoch, (const int*)att_block,
-      (long long*)lm_epoch, (int*)lm_block, (const long long*)balance,
-      (const bool*)can_update, (long long*)node_weight, (const long long*)best,
-      (bool*)accept, b, nb_pad);
+  const void* kernel = (const void*)fc_apply_kernel;
+  int grid = 0;
+  int err = coop_grid(kernel, 0, b, &grid);
+  if (err) return err;
+  void* args[] = {&val_idx, &att_epoch, &att_block, &lm_epoch, &lm_block, &balance,
+                  &can_update, &node_weight, &best, &accept, &b, &nb_pad};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, 0,
+                                    (cudaStream_t)stream);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
+// The probe: one cooperative launch of the grid K21 takes for b rows, n
+// grid barriers and nothing else.
+extern "C" int fc_grid_barrier_probe_launch(int b, int n, void* out, void* stream) {
+  int grid = 0;
+  int err = coop_grid((const void*)fc_grid_barrier_kernel, 1, b, &grid);
+  if (err) return err;
+  void* args[] = {&n, &out};
+  err = cudaLaunchCooperativeKernel((const void*)fc_grid_barrier_kernel, dim3(grid),
+                                    dim3(kThreads), args, 0, (cudaStream_t)stream);
+  if (err) return err;
   return (int)cudaGetLastError();
 }
 

@@ -174,6 +174,7 @@ def fc_head_plain(parent, node_weight, boost_idx: int, boost_amt: int, real,
 _p, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "fc_apply_launch": [_p] * 10 + [_i32, _i32, _p],
+    "fc_grid_barrier_probe_launch": [_i32, _i32, _p, _p],
     "fc_refresh_launch": [_p, _p, _i64, _i32, _p, _p],
     "fc_head_launch": ([_p, _p, _i32, _i64, _p, _p, _p, _p, _p, _p,
                         _i64, _i64, _i64, _i32, _i32, _i32, _p, _p, _p, _p]),
@@ -198,12 +199,33 @@ def _check(name, t, dtype, shape):
                          f"{t.dtype} {tuple(t.shape)}")
 
 
+# K21's winner-key tables, per (device, stream, V + 1): all -1 between
+# launches (each launch's winners put back the -1 they found); a launch
+# that raises drops its table, so that the next call fills a new one
+_WINNER_TABLES = {}
+
+
+def _table_key(device, v1: int) -> tuple:
+    return (device, torch.cuda.current_stream(device).cuda_stream, v1)
+
+
+def winner_table(device, v1: int) -> torch.Tensor:
+    """K21's winner-key table for tables of `v1` slots on `device` and its
+    current stream (made and filled with -1 at the first call)."""
+    device = torch.device(device)
+    key = _table_key(device, v1)
+    if key not in _WINNER_TABLES:
+        _WINNER_TABLES[key] = torch.full((v1,), -1, dtype=torch.int64,
+                                         device=device)
+    return _WINNER_TABLES[key]
+
+
 def fc_apply_kernel(val_idx, att_epoch, att_block, lm_epoch, lm_block,
                     balance, can_update, node_weight):
-    """K21 on the card: `fc_apply_plain`'s function, three launches (reset
-    the winner keys of the batch's validators, the scatter-max, the
-    per-row accept with the table writes and the weight atomics) counted
-    as one call."""
+    """K21 on the card: `fc_apply_plain`'s function in one cooperative
+    launch (the scatter-max of the winner keys, a grid barrier, the
+    per-row accept with the table writes and the weight atomics), on the
+    device's winner-key table (`winner_table`), which it leaves all -1."""
     b = val_idx.shape[0]
     v1, nb1 = lm_epoch.shape[0], node_weight.shape[0]
     for name, t, dtype, shape in (
@@ -216,17 +238,32 @@ def fc_apply_kernel(val_idx, att_epoch, att_block, lm_epoch, lm_block,
             ("can_update", can_update, torch.bool, (v1,)),
             ("node_weight", node_weight, torch.int64, (nb1,))):
         _check(f"fc_apply {name}", t, dtype, shape)
-    best = torch.empty(v1, dtype=torch.int64, device=val_idx.device)
-    accept = torch.empty(b, dtype=torch.bool, device=val_idx.device)
+    dev = val_idx.device
+    accept = torch.empty(b, dtype=torch.bool, device=dev)
     args = (val_idx, att_epoch, att_block, lm_epoch, lm_block, balance,
-            can_update, node_weight, best, accept)
-    _build.require_cuda("fc_apply", *args)
+            can_update, node_weight)
+    _build.require_cuda("fc_apply", *args, accept)
     if b:
-        _build.check(_lib().fc_apply_launch(
-            *(t.data_ptr() for t in args), b, nb1 - 1,
-            _build.stream_ptr(val_idx)), "fc_apply")
+        err = _lib().fc_apply_launch(
+            *(t.data_ptr() for t in args), winner_table(dev, v1).data_ptr(),
+            accept.data_ptr(), b, nb1 - 1, _build.stream_ptr(val_idx))
+        if err:
+            _WINNER_TABLES.pop(_table_key(dev, v1), None)
+        _build.check(err, "fc_apply")
         _build.launches["fc_apply"] += 1
     return accept
+
+
+def fc_grid_barrier_probe(b: int, n: int, device) -> torch.Tensor:
+    """A probe, on no path: one cooperative launch of the grid K21 takes
+    for `b` rows, with `n` grid barriers and no other work; its time is
+    K21's launch and barrier floor.  Not counted in `launches`."""
+    out = torch.empty((), dtype=torch.int32, device=device)
+    _build.require_cuda("fc_grid_barrier_probe", out)
+    _build.check(_lib().fc_grid_barrier_probe_launch(
+        int(b), int(n), out.data_ptr(), _build.stream_ptr(out)),
+        "fc_grid_barrier_probe")
+    return out
 
 
 def fc_refresh_kernel(lm_block, balance, nb_pad: int):

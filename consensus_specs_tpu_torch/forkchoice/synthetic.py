@@ -131,6 +131,36 @@ def kernel_inputs(nb_pad: int, v_pad: int, batch: int, seed: int = 0):
         boost_amt=40 * 32 * 10 ** 9, sj=sj, sf=sf, cur=cur, justified_idx=0)
 
 
+def apply_batches(nb_pad: int, v_pad: int, batch: int, n_batches: int,
+                  seed: int = 0):
+    """`kernel_inputs`' tables and `n_batches` apply batches to fold into
+    them one after another, the first `kernel_inputs`' own.  Each later
+    batch k has 1/8 padded rows, validators repeated among its random
+    rows, epochs in [k, 9 + k) (some above the table's, some below),
+    validator 5 on ten rows at epoch 2 (its table entry is 7 once the first
+    batch is folded: the winner is rejected as older), and an equivocator
+    (can_update False) on four rows at epoch 50 + k.  Returns (the
+    `kernel_inputs` dict, [(val_idx, att_epoch, att_block), ...])."""
+    x = kernel_inputs(nb_pad, v_pad, batch, seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    nb, nv = nb_pad - nb_pad // 8, v_pad - v_pad // 8
+    b_live = batch - batch // 8
+    equivocator = int(np.flatnonzero(~x["can_update"][:nv])[0])
+    batches = [(x["val_idx"], x["att_epoch"], x["att_block"])]
+    for k in range(1, n_batches):
+        val_idx = np.full(batch, v_pad, dtype=np.int32)
+        att_epoch = np.full(batch, -1, dtype=np.int64)
+        att_block = np.full(batch, nb_pad, dtype=np.int32)
+        val_idx[:b_live] = rng.randint(0, nv, b_live)
+        att_epoch[:b_live] = rng.randint(k, 9 + k, b_live)
+        att_block[:b_live] = rng.randint(0, nb, b_live)
+        rep = min(10, b_live)
+        val_idx[:rep], att_epoch[:rep] = 5, 2
+        val_idx[rep:rep + 4], att_epoch[rep:rep + 4] = equivocator, 50 + k
+        batches.append((val_idx, att_epoch, att_block))
+    return x, batches
+
+
 HEAD_CASES = ("tree", "boost", "roots", "chain", "full_chain", "non_viable",
               "words")
 

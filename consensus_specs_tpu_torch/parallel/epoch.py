@@ -17,12 +17,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
 
 from .. import _build
-from .._uint import i64, shr64, udiv, ule, ult, umax, umin, umod
+from .._uint import i64, udiv, ule, ult, umax, umin, umod
 from ..params import EpochParams
 from .collectives import all_reduce_sum, on, reduce_scatter_sum
 
@@ -63,15 +64,54 @@ class EpochScalars(NamedTuple):
 # --- plain PyTorch version ----------------------------------------------------
 
 
-def _isqrt_u64(n):
-    """Exact floor sqrt of a 0-d uint64 tensor, the JAX `_isqrt_u64` step
-    for step: float64 seed, a guarded Newton step, then -1/+1 fixes."""
-    as_f64 = n.to(torch.float64) + torch.where(n < 0, 2.0**64, 0.0)
-    x = torch.floor(torch.sqrt(as_f64)).to(torch.int64)
-    newton = shr64(x + udiv(n, umax(x, 1)), 1)
-    x = torch.where(x != 0, umin(x, newton), x)
-    x = torch.where(ult(n, x * x), x - 1, x)
-    return torch.where(ule((x + 1) * (x + 1), n), x + 1, x)
+_MASK = 2**64 - 1
+
+# int64 words of the grid-wide values that K24's (b) hands to (c)
+# (`kTotalsWords`, the `Totals` struct of csrc/epoch_sweep.cu): total
+# active balance, its square root, total_active / increment, the three
+# attesting / increment quotients, the slashing adjustment, then the
+# division magics (m, sh1 | sh2 << 32) of the square root, total_incr and
+# total_active.
+TOTALS_WORDS = 13
+
+
+def _isqrt(n: int) -> int:
+    """The JAX `_isqrt_u64` step for step on a Python int in [0, 2**64):
+    float64 seed, a guarded Newton step, then -1/+1 fixes, in uint64."""
+    x = math.floor(math.sqrt(float(n)))
+    if x > 0:
+        x = min(x, (x + n // max(x, 1)) // 2)
+    if (x * x) & _MASK > n:
+        x -= 1
+    if ((x + 1) * (x + 1)) & _MASK <= n:
+        x += 1
+    return x
+
+
+def magic(d: int) -> tuple:
+    """The kernels' exact division by d >= 1 (`make_div`: Granlund and
+    Montgomery 1994, figure 4.1) as two words: m = floor(2**64 (2**l - d)
+    / d) + 1 mod 2**64 and sh1 | sh2 << 32, with l = ceil(log2 d), sh1 =
+    min(l, 1), sh2 = max(l - 1, 0)."""
+    lg = (d - 1).bit_length() if d > 1 else 0
+    m = ((((1 << lg) - d) << 64) // d + 1) & _MASK
+    return m, min(lg, 1) | max(lg - 1, 0) << 32
+
+
+def derive_totals(sums, sc: EpochScalars, params: EpochParams) -> list:
+    """The TOTALS_WORDS grid-wide values, as uint64 Python ints, from the
+    all-reduced sums (a (4,) int64 tensor or four ints)."""
+    s = [int(v) & _MASK for v in sums]
+    incr = params.effective_balance_increment
+    total_active = max(incr, s[0])
+    sqrt_total = _isqrt(total_active)
+    words = [total_active, sqrt_total, total_active // incr,
+             *(max(incr, v) // incr for v in s[1:]),
+             min((sc.slashings_sum * params.proportional_slashing_multiplier)
+                 & _MASK, total_active)]
+    for d in (sqrt_total, words[2], total_active):
+        words += magic(d)
+    return words
 
 
 def _c(x, dev):
@@ -85,103 +125,101 @@ def _flags(reg: RegistryArrays):
             reg.is_head & unslashed]
 
 
-def sweep_totals_plain(reg: RegistryArrays, sc: EpochScalars) -> torch.Tensor:
-    """(4,) int64: the sums over the registry of the effective balances
-    of the validators active this epoch, and of the unslashed source,
-    target and head attesters (JAX `_total`'s local `jnp.sum`)."""
+def sweep_totals_plain(reg: RegistryArrays, sc: EpochScalars,
+                       n_global: int):
+    """(a): the (4,) int64 sums over the registry of the effective
+    balances of the validators active this epoch, and of the unslashed
+    source, target and head attesters (JAX `_total`'s local `jnp.sum`),
+    and a zero proposer-share accumulator of `n_global` rows for (b).
+    Returns (sums, acc)."""
     eff = reg.effective_balance
     zero = torch.zeros_like(eff)
     cur = _c(sc.current_epoch, eff.device)
     active_cur = ule(reg.activation_epoch, cur) & ult(cur, reg.exit_epoch)
-    return torch.stack([torch.where(m, eff, zero).sum()
+    sums = torch.stack([torch.where(m, eff, zero).sum()
                         for m in [active_cur] + _flags(reg)])
+    return sums, torch.zeros(n_global, dtype=torch.int64, device=eff.device)
 
 
-def _totals(sums: torch.Tensor, incr):
-    """(total_active, attesting sums of the three flags) from the global
-    sums, each at least one increment."""
-    return umax(incr, sums[0]), [umax(incr, sums[k]) for k in (1, 2, 3)]
+def _base_reward(reg: RegistryArrays, params: EpochParams, sqrt_total: int):
+    """(base reward, proposer reward) of every validator."""
+    dev = reg.balance.device
+    base = udiv(udiv(reg.effective_balance * params.base_reward_factor,
+                     _c(sqrt_total, dev)),
+                _c(params.base_rewards_per_epoch, dev))
+    return base, udiv(base, _c(params.proposer_reward_quotient, dev))
 
 
-def sweep_deltas_plain(reg: RegistryArrays, sc: EpochScalars,
+def sweep_shares_plain(reg: RegistryArrays, sc: EpochScalars,
                        params: EpochParams, sums: torch.Tensor,
-                       n_global: int):
-    """Each validator's rewards and penalties from the global `sums`, and
-    the proposers' shares scattered into a zero accumulator of
-    `n_global` rows as JAX's `.at[idx].add(mode="drop")` does: a negative
-    index counts from the end of `n_global`, an index still outside
-    [0, n_global) is dropped.  Returns (rewards, penalties, acc)."""
+                       acc: torch.Tensor) -> torch.Tensor:
+    """(b): each unslashed source attester's proposer share, from the
+    all-reduced `sums`, added into `acc` (the n_global rows of (a)) in
+    place as JAX's `.at[idx].add(mode="drop")` does: a negative index
+    counts from the end of n_global, an index still outside [0, n_global)
+    is dropped.  Returns the grid-wide values, a (TOTALS_WORDS,) int64
+    tensor (`derive_totals`)."""
+    words = derive_totals(sums, sc, params)
+    _, prop = _base_reward(reg, params, words[1])
+    n_global = acc.shape[0]
+    idx = reg.proposer_index.to(torch.int64)
+    idx = torch.where(idx < 0, idx + n_global, idx)
+    keep = _flags(reg)[0] & (idx >= 0) & (idx < n_global)
+    acc.index_add_(0, torch.where(keep, idx, 0),
+                   torch.where(keep, prop, torch.zeros_like(prop)))
+    return torch.tensor([i64(w) for w in words], dtype=torch.int64,
+                        device=acc.device)
+
+
+def sweep_apply_plain(reg: RegistryArrays, sc: EpochScalars,
+                      params: EpochParams, totals: torch.Tensor, received):
+    """(c): (new_balance, new_effective_balance) from the grid-wide
+    `totals` of (b): each validator's rewards and penalties, balance +
+    rewards + the proposer shares `received` - penalties with saturation,
+    the proportional slashing penalty, the hysteresis."""
     p = params
     dev = reg.balance.device
     eff = reg.effective_balance
     zero = torch.zeros_like(eff)
+    words = [int(w) & _MASK for w in totals.tolist()]
+    total_active, sqrt_total, total_incr = words[:3]
+    att_q, adj = words[3:6], words[6]
     cur, fdelay = _c(sc.current_epoch, dev), _c(sc.finality_delay, dev)
     prev = umax(cur, 1) - 1
     active_prev = ule(reg.activation_epoch, prev) & ult(prev, reg.exit_epoch)
     eligible = active_prev | (reg.slashed
                               & ult(prev + 1, reg.withdrawable_epoch))
-
-    incr = _c(p.effective_balance_increment, dev)
-    total_active, attesting = _totals(sums, incr)
-    sqrt_total = _isqrt_u64(total_active)
-    base_reward = udiv(udiv(eff * p.base_reward_factor, sqrt_total),
-                       _c(p.base_rewards_per_epoch, dev))
-    proposer_reward = udiv(base_reward, _c(p.proposer_reward_quotient, dev))
-    in_leak = ult(_c(p.min_epochs_to_inactivity_penalty, dev), fdelay)
+    base, prop = _base_reward(reg, p, sqrt_total)
+    in_leak = sc.finality_delay > p.min_epochs_to_inactivity_penalty
 
     rewards = torch.zeros_like(eff)
     penalties = torch.zeros_like(eff)
     flags = _flags(reg)
-    for flag, att in zip(flags, attesting):
-        participation = udiv(base_reward * udiv(att, incr),
-                             udiv(total_active, incr))
-        comp = torch.where(in_leak, base_reward, participation)
+    for flag, q in zip(flags, att_q):
+        comp = base if in_leak else udiv(base * _c(q, dev),
+                                         _c(total_incr, dev))
         rewards += torch.where(eligible & flag, comp, zero)
-        penalties += torch.where(eligible & ~flag, base_reward, zero)
-
-    # inclusion-delay micro-rewards, and the proposer's share scattered
-    src = flags[0]
-    rewards += torch.where(
-        src, udiv(base_reward - proposer_reward,
-                  umax(reg.inclusion_delay, 1)), zero)
-    idx = reg.proposer_index.to(torch.int64)
-    idx = torch.where(idx < 0, idx + n_global, idx)
-    keep = src & (idx >= 0) & (idx < n_global)
-    acc = torch.zeros(n_global, dtype=torch.int64, device=dev)
-    acc.index_add_(0, torch.where(keep, idx, 0),
-                   torch.where(keep, proposer_reward, zero))
-
-    leak_base = p.base_rewards_per_epoch * base_reward - proposer_reward
-    leak_extra = udiv(eff * fdelay, _c(p.inactivity_penalty_quotient, dev))
-    penalties += torch.where(in_leak & eligible, leak_base, zero)
-    penalties += torch.where(in_leak & eligible & ~flags[1], leak_extra, zero)
-    return rewards, penalties, acc
-
-
-def sweep_apply_plain(reg: RegistryArrays, sc: EpochScalars,
-                      params: EpochParams, sums: torch.Tensor, rewards,
-                      penalties, received):
-    """(new_balance, new_effective_balance): balance + rewards + the
-    proposer shares `received` - penalties with saturation, the
-    proportional slashing penalty, the hysteresis."""
-    p = params
-    dev = reg.balance.device
-    eff = reg.effective_balance
-    zero = torch.zeros_like(eff)
-    cur = _c(sc.current_epoch, dev)
-    incr = _c(p.effective_balance_increment, dev)
-    total_active, _ = _totals(sums, incr)
+        penalties += torch.where(eligible & ~flag, base, zero)
+    # inclusion-delay micro-rewards
+    rewards += torch.where(flags[0], udiv(base - prop,
+                                          umax(reg.inclusion_delay, 1)), zero)
+    if in_leak:
+        leak_extra = udiv(eff * fdelay,
+                          _c(p.inactivity_penalty_quotient, dev))
+        penalties += torch.where(eligible, p.base_rewards_per_epoch * base
+                                 - prop, zero)
+        penalties += torch.where(eligible & ~flags[1], leak_extra, zero)
 
     is_genesis = sc.current_epoch == 0
     bal = reg.balance + (zero if is_genesis else rewards + received)
     pen = zero if is_genesis else penalties
     bal = torch.where(ult(bal, pen), zero, bal - pen)
 
-    adj_slashing = umin(_c(sc.slashings_sum, dev)
-                        * p.proportional_slashing_multiplier, total_active)
+    incr = _c(p.effective_balance_increment, dev)
     hits = reg.slashed & (
         cur + p.epochs_per_slashings_vector // 2 == reg.withdrawable_epoch)
-    slash_pen = udiv(udiv(eff, incr) * adj_slashing, total_active) * incr
+    slash_pen = udiv(udiv(eff, incr) * _c(adj, dev),
+                     _c(total_active, dev)) * incr
     slash_pen = torch.where(hits, slash_pen, zero)
     bal = torch.where(ult(bal, slash_pen), zero, bal - slash_pen)
 
@@ -196,12 +234,12 @@ def sweep_apply_plain(reg: RegistryArrays, sc: EpochScalars,
 def epoch_sweep_plain(reg: RegistryArrays, sc: EpochScalars,
                       params: EpochParams):
     """One epoch's rewards, penalties, slashings and effective-balance
-    updates in plain PyTorch on the registry's device.  Returns
-    (new_balance, new_effective_balance), (N,) int64."""
-    sums = sweep_totals_plain(reg, sc)
-    rewards, penalties, acc = sweep_deltas_plain(reg, sc, params, sums,
-                                                 reg.balance.shape[0])
-    return sweep_apply_plain(reg, sc, params, sums, rewards, penalties, acc)
+    updates in plain PyTorch on the registry's device: the three phases
+    on one shard.  Returns (new_balance, new_effective_balance), (N,)
+    int64."""
+    sums, acc = sweep_totals_plain(reg, sc, reg.balance.shape[0])
+    totals = sweep_shares_plain(reg, sc, params, sums, acc)
+    return sweep_apply_plain(reg, sc, params, totals, acc)
 
 
 # --- kernel K1 ----------------------------------------------------------------
@@ -217,11 +255,15 @@ def _lib():
     lib.epoch_sweep_scratch_bytes.argtypes = []
     lib.epoch_sweep_scratch_bytes.restype = ctypes.c_int64
     p, i64_ = ctypes.c_void_p, ctypes.c_int64
-    lib.epoch_totals_launch.argtypes = [p] * 7 + [i64_, ctypes.c_uint64, p, p]
-    lib.epoch_deltas_sharded_launch.argtypes = [p] * 10 + [i64_] * 2 + [p] * 7
-    lib.epoch_apply_sharded_launch.argtypes = [p] * 4 + [i64_] + [p] * 7
-    for f in ("epoch_totals_launch", "epoch_deltas_sharded_launch",
-              "epoch_apply_sharded_launch"):
+    lib.epoch_shard_scratch_bytes.argtypes = []
+    lib.epoch_shard_scratch_bytes.restype = ctypes.c_int64
+    lib.epoch_shard_totals_launch.argtypes = (
+        [p] * 7 + [i64_, ctypes.c_uint64, p, i64_, p, p, p])
+    lib.epoch_shard_shares_launch.argtypes = [p] * 4 + [i64_] * 2 + [p] * 7
+    lib.epoch_shard_apply_launch.argtypes = [p] * 10 + [i64_] + [p] * 7
+    lib.epoch_prelude_probe_launch.argtypes = [ctypes.c_uint64] + [p] * 4
+    for f in ("epoch_shard_totals_launch", "epoch_shard_shares_launch",
+              "epoch_shard_apply_launch", "epoch_prelude_probe_launch"):
         getattr(lib, f).restype = ctypes.c_int
     return lib
 
@@ -290,79 +332,123 @@ def epoch_sweep(reg: RegistryArrays, sc: EpochScalars, params: EpochParams):
 
 # --- kernel K24: the sweep's three phases on one shard -----------------------
 
+# K24's zeroed scratch (the sums' accumulators, the arrival counters) per
+# (device, stream): each launch leaves it zero; a launch that raises drops
+# it, so that the next call starts from a new zeroed one
+_SCRATCH = {}
 
-def _check_sums(name: str, sums, dev) -> None:
-    if sums.dtype != torch.int64 or sums.shape != (4,) or sums.device != dev:
-        raise ValueError(f"{name}: sums must be (4,) int64 on {dev}")
+
+def _shard_scratch(dev) -> tuple:
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    if key not in _SCRATCH:
+        words = -(-_lib().epoch_shard_scratch_bytes() // 8)
+        _SCRATCH[key] = torch.zeros(words, dtype=torch.int64, device=dev)
+    return key, _SCRATCH[key]
 
 
-def sweep_totals_kernel(reg: RegistryArrays, sc: EpochScalars) -> torch.Tensor:
-    """K24 (a) on a shard of CUDA tensors: its (4,) int64 sums."""
-    n = _check_registry("epoch_sweep_sharded", reg)
-    sums = torch.empty(4, dtype=torch.int64, device=reg.balance.device)
-    _build.check(_lib().epoch_totals_launch(
-        reg.effective_balance.data_ptr(), reg.slashed.data_ptr(),
-        reg.activation_epoch.data_ptr(), reg.exit_epoch.data_ptr(),
-        reg.is_source.data_ptr(), reg.is_target.data_ptr(),
-        reg.is_head.data_ptr(), n, int(sc.current_epoch), sums.data_ptr(),
-        _build.stream_ptr(sums)), "epoch_sweep_sharded")
+def _launch_on_scratch(key, err: int) -> None:
+    if err:
+        _SCRATCH.pop(key, None)
+    _build.check(err, "epoch_sweep_sharded")
     _build.launches["epoch_sweep_sharded"] += 1
-    return sums
 
 
-def sweep_deltas_kernel(reg: RegistryArrays, sc: EpochScalars,
-                        params: EpochParams, sums: torch.Tensor,
+def _check_vector(name: str, t, n: int, dev) -> None:
+    if t.dtype != torch.int64 or t.shape != (n,) or t.device != dev:
+        raise ValueError(f"epoch_sweep_sharded: {name} must be ({n},) int64 "
+                         f"on {dev}, got {tuple(t.shape)} {t.dtype} on "
+                         f"{t.device}")
+
+
+def sweep_totals_kernel(reg: RegistryArrays, sc: EpochScalars,
                         n_global: int):
-    """K24 (b) on a shard of CUDA tensors: (rewards, penalties, acc) as
-    `sweep_deltas_plain` returns them."""
+    """K24 (a) on a shard of CUDA tensors: (sums, acc) as
+    `sweep_totals_plain` returns them, in one launch (acc is zeroed by
+    the kernel, not by a memset)."""
     n = _check_registry("epoch_sweep_sharded", reg)
-    dev = reg.balance.device
-    _check_sums("epoch_sweep_sharded", sums, dev)
     if not n <= n_global < 2**31:
         raise ValueError(f"epoch_sweep_sharded: global length {n_global} "
                          f"for a shard of {n}")
-    c_params, c_scalars = _c_params(params, sc)
-    rewards = torch.empty(n, dtype=torch.int64, device=dev)
-    penalties = torch.empty(n, dtype=torch.int64, device=dev)
+    dev = reg.balance.device
+    key, scratch = _shard_scratch(dev)
+    sums = torch.empty(4, dtype=torch.int64, device=dev)
     acc = torch.empty(n_global, dtype=torch.int64, device=dev)
-    ptrs = [reg.effective_balance, reg.slashed, reg.activation_epoch,
-            reg.exit_epoch, reg.withdrawable_epoch, reg.is_source,
-            reg.is_target, reg.is_head, reg.inclusion_delay,
-            reg.proposer_index]
-    _build.check(_lib().epoch_deltas_sharded_launch(
-        *(t.data_ptr() for t in ptrs), n, n_global,
-        ctypes.addressof(c_params), ctypes.addressof(c_scalars),
-        sums.data_ptr(), rewards.data_ptr(), penalties.data_ptr(),
-        acc.data_ptr(), _build.stream_ptr(acc)), "epoch_sweep_sharded")
-    _build.launches["epoch_sweep_sharded"] += 1
-    return rewards, penalties, acc
+    _launch_on_scratch(key, _lib().epoch_shard_totals_launch(
+        reg.effective_balance.data_ptr(), reg.slashed.data_ptr(),
+        reg.activation_epoch.data_ptr(), reg.exit_epoch.data_ptr(),
+        reg.is_source.data_ptr(), reg.is_target.data_ptr(),
+        reg.is_head.data_ptr(), n, int(sc.current_epoch), acc.data_ptr(),
+        n_global, scratch.data_ptr(), sums.data_ptr(),
+        _build.stream_ptr(sums)))
+    return sums, acc
+
+
+def sweep_shares_kernel(reg: RegistryArrays, sc: EpochScalars,
+                        params: EpochParams, sums: torch.Tensor,
+                        acc: torch.Tensor) -> torch.Tensor:
+    """K24 (b) on a shard of CUDA tensors: the shares added into `acc` in
+    place and the (TOTALS_WORDS,) totals returned, as
+    `sweep_shares_plain` does."""
+    n = _check_registry("epoch_sweep_sharded", reg)
+    dev = reg.balance.device
+    _check_vector("sums", sums, 4, dev)
+    n_global = acc.shape[0]
+    if not n <= n_global < 2**31:
+        raise ValueError(f"epoch_sweep_sharded: global length {n_global} "
+                         f"for a shard of {n}")
+    _check_vector("acc", acc, n_global, dev)
+    _build.require_cuda("epoch_sweep_sharded", sums, acc)
+    c_params, c_scalars = _c_params(params, sc)
+    key, scratch = _shard_scratch(dev)
+    totals = torch.empty(TOTALS_WORDS, dtype=torch.int64, device=dev)
+    _launch_on_scratch(key, _lib().epoch_shard_shares_launch(
+        reg.effective_balance.data_ptr(), reg.slashed.data_ptr(),
+        reg.is_source.data_ptr(), reg.proposer_index.data_ptr(), n,
+        n_global, ctypes.addressof(c_params), ctypes.addressof(c_scalars),
+        sums.data_ptr(), acc.data_ptr(), scratch.data_ptr(),
+        totals.data_ptr(), _build.stream_ptr(acc)))
+    return totals
 
 
 def sweep_apply_kernel(reg: RegistryArrays, sc: EpochScalars,
-                       params: EpochParams, sums: torch.Tensor, rewards,
-                       penalties, received):
+                       params: EpochParams, totals: torch.Tensor, received):
     """K24 (c) on a shard of CUDA tensors: (new_balance,
-    new_effective_balance), written over `rewards` and `penalties` (the
-    buffers of (b)), which are returned."""
+    new_effective_balance) as `sweep_apply_plain` returns them (K1's
+    apply pass)."""
     n = _check_registry("epoch_sweep_sharded", reg)
     dev = reg.balance.device
-    _check_sums("epoch_sweep_sharded", sums, dev)
-    for t in (rewards, penalties, received):
-        if t.dtype != torch.int64 or t.shape != (n,):
-            raise ValueError(f"epoch_sweep_sharded: rewards, penalties and "
-                             f"received must be ({n},) int64")
-    _build.require_cuda("epoch_sweep_sharded", reg.balance, rewards,
-                        penalties, received)
+    _check_vector("totals", totals, TOTALS_WORDS, dev)
+    _check_vector("received", received, n, dev)
+    _build.require_cuda("epoch_sweep_sharded", totals, received)
     c_params, c_scalars = _c_params(params, sc)
-    _build.check(_lib().epoch_apply_sharded_launch(
-        reg.balance.data_ptr(), reg.effective_balance.data_ptr(),
-        reg.slashed.data_ptr(), reg.withdrawable_epoch.data_ptr(), n,
+    new_bal = torch.empty(n, dtype=torch.int64, device=dev)
+    new_eff = torch.empty(n, dtype=torch.int64, device=dev)
+    ptrs = [reg.balance, reg.effective_balance, reg.slashed,
+            reg.activation_epoch, reg.exit_epoch, reg.withdrawable_epoch,
+            reg.is_source, reg.is_target, reg.is_head, reg.inclusion_delay]
+    _build.check(_lib().epoch_shard_apply_launch(
+        *(t.data_ptr() for t in ptrs), n,
         ctypes.addressof(c_params), ctypes.addressof(c_scalars),
-        sums.data_ptr(), received.data_ptr(), rewards.data_ptr(),
-        penalties.data_ptr(), _build.stream_ptr(rewards)),
+        totals.data_ptr(), received.data_ptr(), new_bal.data_ptr(),
+        new_eff.data_ptr(), _build.stream_ptr(new_bal)),
         "epoch_sweep_sharded")
     _build.launches["epoch_sweep_sharded"] += 1
-    return rewards, penalties
+    return new_bal, new_eff
+
+
+def prelude_probe(total: int, sc: EpochScalars, params: EpochParams,
+                  device) -> list:
+    """A probe, on no path: clock64() cycles, on one warp of the card, of
+    (b)'s per-block prelude (the square root and its magic), of the
+    per-block derivations that the parent design's (b) and (c) ran, and
+    of (b)'s last block's whole derivation, for the active balance
+    `total`.  Not counted in `launches`."""
+    c_params, c_scalars = _c_params(params, sc)
+    out = torch.empty(5, dtype=torch.int64, device=device)
+    _build.check(_lib().epoch_prelude_probe_launch(
+        int(total), ctypes.addressof(c_params), ctypes.addressof(c_scalars),
+        out.data_ptr(), _build.stream_ptr(out)), "epoch_prelude_probe")
+    return out.tolist()[:4]
 
 
 def epoch_sweep_sharded(regs, sc: EpochScalars, params: EpochParams,
@@ -386,23 +472,23 @@ def epoch_sweep_sharded(regs, sc: EpochScalars, params: EpochParams,
         use_plain = plain or reg.balance.device.type == "cpu"
         return plain_fn if use_plain else kernel
 
-    sums = []
+    parts = []
     for reg in regs:
         with on(reg.balance.device):
-            sums.append(pick(sweep_totals_kernel, sweep_totals_plain,
-                             reg)(reg, sc))
-    sums = all_reduce_sum(sums)
-    deltas = []
-    for reg, s in zip(regs, sums):
+            parts.append(pick(sweep_totals_kernel, sweep_totals_plain,
+                              reg)(reg, sc, n_global))
+    sums = all_reduce_sum([s for s, _ in parts])
+    totals = []
+    for reg, s, (_, acc) in zip(regs, sums, parts):
         with on(reg.balance.device):
-            deltas.append(pick(sweep_deltas_kernel, sweep_deltas_plain,
-                               reg)(reg, sc, params, s, n_global))
-    received = reduce_scatter_sum([acc for _, _, acc in deltas])
+            totals.append(pick(sweep_shares_kernel, sweep_shares_plain,
+                               reg)(reg, sc, params, s, acc))
+    received = reduce_scatter_sum([acc for _, acc in parts])
     new_bal, new_eff = [], []
-    for reg, s, (rew, pen, _), got in zip(regs, sums, deltas, received):
+    for reg, t, got in zip(regs, totals, received):
         with on(reg.balance.device):
             b, e = pick(sweep_apply_kernel, sweep_apply_plain,
-                        reg)(reg, sc, params, s, rew, pen, got)
+                        reg)(reg, sc, params, t, got)
         new_bal.append(b)
         new_eff.append(e)
     return new_bal, new_eff

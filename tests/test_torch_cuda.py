@@ -1215,6 +1215,37 @@ def test_fc_kernels(dev, nb_pad, v_pad, batch):
             assert _build.launches[name] == before[name] + n
 
 
+@pytest.mark.parametrize("nb_pad,v_pad,batch", [(64, 256, 64),
+                                                (1024, 4096, 1024),
+                                                (1024, 2**20, 16384)])
+def test_fc_apply_back_to_back_batches(dev, nb_pad, v_pad, batch):
+    """K21 over 8 batches in a row (`synthetic.apply_batches`: repeated
+    validators, winners rejected as older or as equivocators, padded
+    rows) against `fc_apply_plain`, the winner table all -1 after each
+    batch."""
+    from consensus_specs_tpu_torch.forkchoice import kernels as FK
+    from consensus_specs_tpu_torch.forkchoice import synthetic as FS
+
+    x, batches = FS.apply_batches(nb_pad, v_pad, batch, 8, seed=2)
+    k, p = (_fc_tensors(x, dev) for _ in range(2))
+    table = FK.winner_table(dev, v_pad + 1)
+    for val_idx, att_epoch, att_block in batches:
+        rows = [torch.from_numpy(a).to(dev)
+                for a in (val_idx, att_epoch, att_block)]
+        before = _build.launches["fc_apply"]
+        acc = FK.fc_apply(*rows, *(k[n] for n in _FC_APPLY[3:]))
+        want = FK.fc_apply_plain(*rows, *(p[n] for n in _FC_APPLY[3:]))
+        torch.cuda.synchronize()
+        assert _build.launches["fc_apply"] == before + 1
+        assert torch.equal(acc, want)
+        assert torch.equal(k["lm_epoch"][:v_pad], p["lm_epoch"][:v_pad])
+        assert torch.equal(k["lm_block"][:v_pad], p["lm_block"][:v_pad])
+        assert torch.equal(k["node_weight"][:nb_pad],
+                           p["node_weight"][:nb_pad])
+        assert bool((table == -1).all())
+    assert FK.winner_table(dev, v_pad + 1) is table
+
+
 @pytest.mark.parametrize("nb_pad", [64, 1024, 16384])
 def test_fc_head_cases(dev, nb_pad):
     """K23 against its plain version on every case of
@@ -1361,16 +1392,19 @@ def test_epoch_sweep_sharded_kernel(dev, scalars):
     mesh = P.make_mesh(devices=[dev] * d)
     regs = P.shard_registry(mesh, reg)
     sc = EpochScalars(*scalars)
-    sums = CO.all_reduce_sum([E.sweep_totals_kernel(r, sc) for r in regs])
-    for r, s in zip(regs, sums):
-        assert torch.equal(s, CO.all_reduce_sum(
-            [E.sweep_totals_plain(q, sc) for q in regs])[0])
-        got = E.sweep_deltas_kernel(r, sc, MAINNET, s, n)
-        want = E.sweep_deltas_plain(r, sc, MAINNET, s, n)
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
-        recv = want[2][:n // d]
-        got = E.sweep_apply_kernel(r, sc, MAINNET, s, got[0], got[1], recv)
-        want = E.sweep_apply_plain(r, sc, MAINNET, s, want[0], want[1], recv)
+    parts = [E.sweep_totals_kernel(r, sc, n) for r in regs]
+    for r, (s, a) in zip(regs, parts):
+        ws, wa = E.sweep_totals_plain(r, sc, n)
+        assert torch.equal(s, ws) and torch.equal(a, wa)
+    sums = CO.all_reduce_sum([s for s, _ in parts])
+    p_accs = [torch.zeros(n, dtype=torch.int64, device=dev) for _ in regs]
+    for r, s, (_, a), pa in zip(regs, sums, parts, p_accs):
+        got = E.sweep_shares_kernel(r, sc, MAINNET, s, a)
+        want = E.sweep_shares_plain(r, sc, MAINNET, s, pa)
+        assert torch.equal(got, want) and torch.equal(a, pa)
+        recv = pa[:n // d]
+        got = E.sweep_apply_kernel(r, sc, MAINNET, want, recv)
+        want = E.sweep_apply_plain(r, sc, MAINNET, want, recv)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     _build.reset_launches()
     bal, eff = E.epoch_sweep_sharded(regs, sc, MAINNET)
@@ -1379,6 +1413,31 @@ def test_epoch_sweep_sharded_kernel(dev, scalars):
     want = E.epoch_sweep_kernel(reg, sc, MAINNET)
     assert torch.equal(torch.cat(bal), want[0])
     assert torch.equal(torch.cat(eff), want[1])
+
+
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+def test_epoch_sweep_sharded_hot_proposers(dev, d):
+    """K24 where every attester's proposer is one of 32 validators (a
+    mainnet epoch's two epochs of slots): the shares' atomics pile onto 32
+    rows.  Equal to the plain sharded sweep and to K1, with the scratch
+    left zero after each launch (two calls in a row agree)."""
+    from consensus_specs_tpu_torch import parallel as P
+
+    n = 4096
+    reg_np = C.synthetic_registry(n, 3)
+    reg_np["proposer_index"] = C.hot_proposers(n, 32, seed=4)
+    reg = C.registry_to_torch(reg_np, dev)
+    regs = P.shard_registry(P.make_mesh(devices=[dev] * d), reg)
+    sc = EpochScalars(100, 2, 32 * 10**9)
+    want = E.epoch_sweep_kernel(reg, sc, MAINNET)
+    plain = E.epoch_sweep_sharded(regs, sc, MAINNET, plain=True)
+    for _ in range(2):
+        bal, eff = E.epoch_sweep_sharded(regs, sc, MAINNET)
+        assert torch.equal(torch.cat(bal), want[0])
+        assert torch.equal(torch.cat(eff), want[1])
+        assert torch.equal(torch.cat(bal), torch.cat(plain[0]))
+    torch.cuda.synchronize()
+    assert all(not t.any() for t in E._SCRATCH.values())
 
 
 def _shard_partials(dev, tasks, d):

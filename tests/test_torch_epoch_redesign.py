@@ -3,8 +3,8 @@ the JAX package, bit for bit (tolerance zero: exact integer arithmetic):
 
 - (a) K1's exact division by invariant divisors: a Python-int replay of
   the device's magic numbers (`make_div`, `div_hi` in
-  `csrc/epoch_sweep.cu`) and of its multiply-high and shifts, against
-  `//` and `%`;
+  `csrc/epoch_sweep.cu`: Knuth's two-digit division) and of
+  its multiply-high and shifts, against `//` and `%`;
 - (b) K1's pass split (the totals with the last block's derivation, the
   proposer-share scatter, the fused rewards and apply), replayed in
   torch int64 with those divisions, against JAX's `epoch_sweep` on the
@@ -54,16 +54,30 @@ def _one_thread():
 
 
 def div_hi(hi: int, d: int) -> int:
-    """floor(hi * 2**64 / d) for hi < d, bit by bit as the device does."""
-    q = 0
-    for _ in range(64):
-        top = hi >> 63
-        hi = (hi << 1) & MASK
-        q = (q << 1) & MASK
-        if top or hi >= d:
-            hi = (hi - d) & MASK
-            q |= 1
-    return q
+    """floor(hi * 2**64 / d) for hi < d, step by step as the device does:
+    Knuth's algorithm D on two 32-bit digits of the normalised divisor
+    (Hacker's Delight, divlu), in uint64."""
+    b = 1 << 32
+    s = 64 - d.bit_length()
+    d = (d << s) & MASK
+    vn1, vn0 = d >> 32, d & M32
+    un32 = (hi << s) & MASK
+    q1 = un32 // vn1
+    rhat = un32 - q1 * vn1
+    while q1 >= b or (q1 * vn0) & MASK > (b * rhat) & MASK:
+        q1 -= 1
+        rhat += vn1
+        if rhat >= b:
+            break
+    un21 = (un32 * b - q1 * d) & MASK
+    q0 = un21 // vn1
+    rhat = un21 - q0 * vn1
+    while q0 >= b or (q0 * vn0) & MASK > (b * rhat) & MASK:
+        q0 -= 1
+        rhat += vn1
+        if rhat >= b:
+            break
+    return (q1 * b + q0) & MASK
 
 
 def make_div(d: int):
@@ -154,7 +168,7 @@ def split_sweep(reg, sc, p):
     n = reg.balance.shape[0]
     c = lambda x: torch.tensor(i64(x & MASK), dtype=torch.int64)  # noqa: E731
     # (a) the four sums; the last block's totals
-    sums = [int(s) & MASK for s in E.sweep_totals_plain(reg, sc)]
+    sums = [int(s) & MASK for s in E.sweep_totals_plain(reg, sc, n)[0]]
     incr = p.effective_balance_increment
     by_incr = make_div(incr)
     total_active = max(incr, sums[0])
@@ -267,8 +281,8 @@ def test_edge_registry_reaches_the_edges():
     one = C.edge_registry(2**10, single_active=True)
     assert (one["activation_epoch"] <= 100).sum() == 1
     # the slashings sum of 2**63 makes adj the whole active balance
-    sums = E.sweep_totals_plain(C.registry_to_torch(reg, "cpu"),
-                                E.EpochScalars(100, 2, 2**63))
+    sums, _ = E.sweep_totals_plain(C.registry_to_torch(reg, "cpu"),
+                                   E.EpochScalars(100, 2, 2**63), 2**10)
     assert max(10**9, int(sums[0]) & MASK) < 2**63
 
 
