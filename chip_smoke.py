@@ -178,8 +178,10 @@ available.  It imports nothing of JAX or of `consensus_specs_tpu`.
 
 from __future__ import annotations
 
+import collections
 import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -204,7 +206,7 @@ PROFILED_KERNELS = {
 }
 SLEEP_CYCLES = 2_000_000             # about 1 ms at the H100's clocks
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM (NVIDIA data sheet)
-INT32_LANES_PER_SM = 64              # 32-bit integer results per SM per clock
+INT32_LANES_PER_SM = 64              # ALU (or FMA-heavy) lanes an SM a clock
 # BLS, slice 3: bench_bls.py's config #2 (128 aggregate attestations of
 # 64-strong committees, its seed base 1000), the RLC coefficients from
 # random.Random(BLS_RNG_SEED)
@@ -303,15 +305,67 @@ FR_INV_PRODUCTS = 254 + 163
 # and the high half); the carries and the final subtraction are not
 # counted, so the bound is a floor
 OPS_PER_MONT = 2 * 144 * 2
-# 32-bit integer instructions of one 64-byte message (two compressions):
-# a round is 14 (three funnel-shift rotations and one three-input logic op
-# for each of the two Sigmas, one logic op each for Ch and Maj, four adds);
-# a schedule word is 10; the padding block's schedule is constant and
-# folded away; 8 adds end each compression.  A compression with its
-# schedule is OPS_PER_COMPRESSION (hash_to_g2's xmd is 9 OPS_PER_MESSAGE
-# a message: `h2c_work`).
-OPS_PER_COMPRESSION = 64 * 14 + 48 * 10 + 8
-OPS_PER_MESSAGE = OPS_PER_COMPRESSION + (64 * 14 + 8)
+# SASS opcodes that issue to the FMA pipe's heavy half on the H100 (16
+# lanes a scheduler, as the ALU pipe has), and the prefixes of those that
+# are no part of a message's arithmetic: memory, control, barriers,
+# special registers and the uniform datapath (a pipe of its own)
+SASS_FMA_HEAVY = ("IMAD", "IMUL")
+# sm_90's VIADD, whose pipe NVIDIA does not document: counted at the issue
+# rate only, so that the floor holds on either pipe
+SASS_EITHER_PIPE = ("VIADD",)
+SASS_NOT_ARITH = ("LD", "ST", "ATOM", "RED", "BRA", "EXIT", "BSSY", "BSYNC",
+                  "BAR", "WARPSYNC", "S2R", "S2UR", "CS2R", "NOP", "CALL",
+                  "RET", "U")
+# a SASS instruction line: its address, a predicate, the opcode
+SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+
+
+def sass_opcodes(lib: str, kernel: str) -> dict:
+    """{opcode: count} over the SASS text of the kernel whose name holds
+    `kernel` in the built library `lib` (`cuobjdump -sass`), the opcode
+    cut at its first '.'."""
+    from pathlib import Path
+
+    from consensus_specs_tpu_torch import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(_build._target(lib))],
+                          check=True, capture_output=True, text=True,
+                          timeout=120).stdout
+    for part in text.split("Function : ")[1:]:
+        if kernel in part.split("\n", 1)[0]:
+            return dict(collections.Counter(SASS_LINE.findall(part)))
+    raise RuntimeError(f"no kernel {kernel!r} in the SASS of {lib}")
+
+
+@functools.cache
+def sha_message_mix() -> dict:
+    """One 64-byte SHA-256 message's arithmetic instructions by pipe, from
+    the SASS of K2's `sha256_64B_kernel` (one message a thread, straight
+    line: its text is what a thread runs, a few address instructions
+    included): "fma" the FMA-heavy pipe's (IMAD, IMUL), "either" those
+    of SASS_EITHER_PIPE, "alu" the rest (LOP3, IADD3, SHF, ...), which the
+    ALU pipe runs (Nsight Compute's pipe definitions: the ALU pipe takes
+    the logic, bit-manipulation and integer instructions but IMAD and
+    IMUL)."""
+    ops = sass_opcodes("sha256", "sha256_64B_kernel")
+    fma = sum(c for op, c in ops.items() if op in SASS_FMA_HEAVY)
+    either = sum(c for op, c in ops.items() if op in SASS_EITHER_PIPE)
+    alu = sum(c for op, c in ops.items()
+              if op not in SASS_FMA_HEAVY + SASS_EITHER_PIPE
+              and not op.startswith(SASS_NOT_ARITH))
+    return {"alu": alu, "fma": fma, "either": either, "opcodes": ops}
+
+
+def ops_per_message() -> float:
+    """A message's floor in 32-bit lane-clocks at INT32_LANES_PER_SM a
+    clock: the ALU pipe's instructions and the FMA-heavy pipe's each at
+    64 lanes an SM a clock, and all of them at the issue rate of 128 (four
+    schedulers, a warp-instruction a clock each), the largest of the
+    three.  hash_to_g2's xmd is 9 of these a message (`h2c_work`)."""
+    mix = sha_message_mix()
+    return max(mix["alu"], mix["fma"],
+               (mix["alu"] + mix["fma"] + mix["either"]) / 2)
 
 
 def smi(query: str) -> str:
@@ -436,7 +490,7 @@ def plain_note(key) -> dict:
 def bound(messages: int, nbytes: int, int32_ops_per_s: float):
     """(ms, "operations" or "bytes"): the larger of `messages` 64-byte
     SHA-256 messages at the int32 rate and `nbytes` at the memory rate."""
-    ops_ms = messages * OPS_PER_MESSAGE / int32_ops_per_s * 1e3
+    ops_ms = messages * ops_per_message() / int32_ops_per_s * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
@@ -693,7 +747,9 @@ def check_incremental_kernels(inp, new_bal, new_eff, record_roots, kernels,
            f"{msgs[db]} and {msgs[dr]} messages; plan {tuple(plan)}",
            # one message a level, one instruction a cycle: the levels'
            # dependent chain
-           chain_floor_ms=max(db, dr) * OPS_PER_MESSAGE / clock_hz * 1e3,
+           chain_floor_ms=max(db, dr) * sum(
+               sha_message_mix()[k] for k in ("alu", "fma", "either"))
+           / clock_hz * 1e3,
            balances_ms=device_ms(lambda: I.update_dirty(fb, cidx, bw, db), 50),
            registry_ms=device_ms(lambda: I.update_dirty(fr, vidx, rw, dr), 50),
            balances_bound_ms=bound(msgs[db], k4_bytes(db, cidx),
@@ -751,7 +807,9 @@ def check_incremental_kernels(inp, new_bal, new_eff, record_roots, kernels,
            *bound(0, pidx.numel() * (8 + (db + 1) * 64), int32_ops_per_s),
            shape=f"{pidx.numel()} paths of the depth-{db} balances forest")
 
-    # -- K3 in gather mode: the dirty record roots at rung 16384 ----------
+    # -- K3 in gather mode: the dirty record roots at rung 16384, and the
+    # block tree's edges: one record, a block and one past it, repeated
+    # indices, indices past N (clamped) and pad rows (length < M) ---------
     args = inp.record_args(new_eff)
     err3 = require_equal(
         "records_root gather", M.validator_records_root_kernel(
@@ -761,16 +819,32 @@ def check_incremental_kernels(inp, new_bal, new_eff, record_roots, kernels,
         "records_root gather(odd)",
         M.validator_records_root_kernel(*args, index=odd),
         M.validator_records_root_plain(*args, index=odd)))
+    for m, length in ((1, None), (5, None), (32, None), (33, None),
+                      (128, None), (129, None), (200, None), (200, 150),
+                      (33, 31)):
+        idx = rng.randint(0, n, m)
+        idx[::7] = idx[0]
+        idx[1::11] = n + 5
+        idx[m - 1:] = -1
+        idx = torch.from_numpy(idx).to(dev)
+        err3 = max(err3, require_equal(
+            f"records_root gather(M={m}, length={length})",
+            M.validator_records_root_kernel(*args, length=length, index=idx),
+            M.validator_records_root_plain(*args, length=length, index=idx)))
     m = vidx.numel()
+    gather = (lambda: M.validator_records_root_kernel(*args, index=vidx))
+    # cold: a 64 MB write ahead of each call evicts the fields from L2, as
+    # K1's sweep does in the step
+    scrub = torch.empty(2**26, dtype=torch.uint8, device=dev)
+    cold_ms = device_ms(gather, 20, setup=scrub.zero_)
+    del scrub
     record("records_root_gather",
            "consensus_specs_tpu_torch/csrc/records_root.cu",
-           "bench.py:260", err3,
-           device_ms(lambda: M.validator_records_root_kernel(*args,
-                                                             index=vidx), 50),
+           "bench.py:260", err3, device_ms(gather, 50),
            cuda_ms(lambda: M.validator_records_root_plain(*args, index=vidx),
                    3),
            *bound(7 * m, m * (8 + 105 + 32), int32_ops_per_s),
-           shape=f"rung {m} of 2**20 validators")
+           cold_ms=cold_ms, shape=f"rung {m} of 2**20 validators")
 
 
 def incremental_path(inp, params):
@@ -1503,7 +1577,7 @@ def bls_path(dev, record, int32_ops_per_s):
            dev_ms["hash_to_g2"], plain_ms["hash_to_g2"],
            (products * OPS_PER_MONT + sha_ops) / int32_ops_per_s * 1e3,
            "operations", montgomery_products=products,
-           sha256_instructions=sha_ops, **plain_note("k11"),
+           sha256_lane_clocks=sha_ops, **plain_note("k11"),
            shape=f"B={BLS_TASKS} 32-byte messages, {2 * BLS_TASKS} field "
            "elements mapped", replaces_also=[
                "consensus_specs_tpu/ops/bls_batch/h2c_jax.py:126",
@@ -1556,7 +1630,7 @@ def window_chain_products(digits) -> int:
 
 
 def h2c_work(msgs):
-    """(Montgomery products, SHA-256 instructions) that hash_to_g2 needs
+    """(Montgomery products, SHA-256 lane-clocks) that hash_to_g2 needs
     for these messages, replaying K11's branches on the host (which
     x-candidate of the SVDW map is tried, which square-root candidates),
     each fixed chain counted the cheaper of two ways: binary
@@ -1569,7 +1643,7 @@ def h2c_work(msgs):
     holds the message (a compression with its schedule) and its third
     is template only (a constant schedule, folded); each of the 8 b_i
     is one block with its schedule and one template block, so 9
-    OPS_PER_MESSAGE.  Then 3 products per 512-bit draw, the map's fixed
+    `ops_per_message()`.  Then 3 products per 512-bit draw, the map's fixed
     part, 5 per g(x) and each square-root candidate, sgn0 twice; the
     cofactor clearing (the u0 + u1 addition, then H2 q) and the affine
     conversion.  Fq2: a product 3, a square 2; G2 doubling 16, addition
@@ -1622,7 +1696,7 @@ def h2c_work(msgs):
     sv = _SVDW_G2
     products = sha = 0
     for m in msgs:
-        sha += 9 * OPS_PER_MESSAGE
+        sha += 9 * ops_per_message()
         for u in hash_to_field_fq2(m, 2, DST_G2):
             products += 2 * 3 + 27 + fp2_inv + 4
             tv1 = u.square() * sv.c1
@@ -3687,13 +3761,70 @@ def check_fc_kernels(dev, record):
     lib = torch.zeros(nb + 1, dtype=torch.int64, device=dev).index_add_(
         0, tgt, val)
     err = max(err, require_equal("index_add_", ref[:nb], lib[:nb]))
-    k22_bytes = (nv + 1) * (4 + 8) + (nb + 1) * 8
+    # the tables K22 meets: none voted (the paths' rebuild), half voted,
+    # every vote on one block with balances that carry out of the low word
+    # and wrap the high one; NB up to the shared-memory route's top and
+    # past it (the global route); each twice in a row on one stream, the
+    # accumulator zero after each call
+    rng = np.random.RandomState(SEED + 22)
+    edge = np.array([2**32 - 1, 2**32, 2**63 - 1, -2**63, -1, 3], np.int64)
+    tables, edge_ms = {}, {}
+    for nb_t in (64, nb, 16384, 32768):
+        half = np.full(nv + 1, -1, np.int32)
+        on = rng.rand(nv) < 0.5
+        half[:nv][on] = rng.randint(0, nb_t, int(on.sum()))
+        one = np.full(nv + 1, -1, np.int32)
+        one[:nv] = 3
+        for case, lm_np, bal_np in (
+                ("empty", np.full(nv + 1, -1, np.int32), x["balance"]),
+                ("half", half, x["balance"]),
+                ("one", one, rng.choice(edge, nv + 1))):
+            lm_t = torch.from_numpy(lm_np).to(dev)
+            bal_t = torch.from_numpy(np.array(bal_np, np.int64)).to(dev)
+            tables[nb_t, case] = (lm_t, bal_t)
+            want = FK.fc_refresh_plain(lm_t, bal_t, nb_t)
+            lib_t = torch.zeros(nb_t + 1, dtype=torch.int64,
+                                device=dev).index_add_(
+                0, torch.where(lm_t >= 0, lm_t.long(), nb_t),
+                torch.where(lm_t >= 0, bal_t, 0))
+            outs = []
+            for rep in range(2):
+                outs.append(FK.fc_refresh_kernel(lm_t, bal_t, nb_t))
+                err = max(err, require_equal(
+                    f"fc_refresh({case}, NB={nb_t}, call {rep})", outs[-1],
+                    want))
+                err = max(err, require_equal(
+                    f"index_add_({case}, NB={nb_t})", outs[-1], lib_t))
+                if bool(FK.refresh_accumulator(dev, nb_t + 1).any()):
+                    raise AssertionError(f"fc_refresh({case}, NB={nb_t}): "
+                                         "the next accumulator is not zero")
+            # the second call left the first one's output alone
+            err = max(err, require_equal(
+                f"fc_refresh({case}, NB={nb_t}, call 0 after call 1)",
+                outs[0], want))
+    for (nb_t, case) in ((nb, "empty"), (nb, "one"), (16384, "half"),
+                         (32768, "half")):
+        lm_t, bal_t = tables[nb_t, case]
+        edge_ms[f"{case}_nb{nb_t}_ms"] = device_ms(
+            lambda: FK.fc_refresh_kernel(lm_t, bal_t, nb_t), 20)
+    shared = [t for t in (64, nb, 16384, 32768)
+              if FK._lib().fc_refresh_shared_bytes(t)]
+    print(f"fc_refresh: empty, half-voted and one-block tables at NB = 64, "
+          f"{nb}, 16384, 32768 (the shared route at NB = {shared}), twice "
+          f"each, equal to the plain version and index_add_; "
+          + ", ".join(f"{k} {v:.6f}" for k, v in edge_ms.items()))
+    # the bytes this table needs: every lm_block, the balances of the rows
+    # with a vote, the output
+    k22_bytes = (nv + 1) * 4 + int((lm_b >= 0).sum()) * 8 + (nb + 1) * 8
+    # the floor: the bytes, and one launch (an empty launch of K23's block)
+    empty_launch_ms = device_ms(lambda: FK.fc_barrier_probe(0, dev), 20)
     record("fc_refresh", "consensus_specs_tpu_torch/csrc/forkchoice.cu",
            "consensus_specs_tpu/forkchoice/kernels.py:130", err,
            device_ms(lambda: FK.fc_refresh_kernel(lm_b, bal, nb), 50),
            device_ms(lambda: FK.fc_refresh_plain(lm_b, bal, nb), 10),
            k22_bytes / HBM_BYTES_PER_S * 1e3, "bytes",
-           bound_bytes=int(k22_bytes), shape=f"V={nv}, NB={nb}")
+           bound_bytes=int(k22_bytes), launch_floor_ms=empty_launch_ms,
+           **edge_ms, shape=f"V={nv}, NB={nb}")
     library_ms = device_ms(
         lambda: torch.zeros(nb + 1, dtype=torch.int64,
                             device=dev).index_add_(0, tgt, val), 50)
@@ -4711,6 +4842,11 @@ def main() -> int:
     if failed:
         raise failed[0]
     finish_build(names, built)
+    mix = sha_message_mix()
+    print(f"sha256 message (SASS of sha256_64B_kernel): alu {mix['alu']} "
+          f"fma {mix['fma']} either {mix['either']}: {ops_per_message()} "
+          f"lane-clocks; opcodes "
+          f"{json.dumps(mix['opcodes'], sort_keys=True)}")
     phase("build")
 
     # -- inputs: the flagship's synthetic mainnet registry, from SEED -----
@@ -4791,7 +4927,7 @@ def main() -> int:
     err = max(err, require_equal(
         "records_root(length<N)", M.validator_records_root_kernel(*short),
         M.validator_records_root_plain(*short)))
-    k3_ops = 7 * n * OPS_PER_MESSAGE
+    k3_ops = 7 * n * ops_per_message()
     k3_bytes = n * (32 + 32 + 8 + 1 + 4 * 8 + 32)
     k3_bound = max(k3_ops / int32_ops_per_s, k3_bytes / HBM_BYTES_PER_S)
     record("records_root", "consensus_specs_tpu_torch/csrc/records_root.cu",
@@ -4817,10 +4953,10 @@ def main() -> int:
     err = max(err, require_equal(
         "sha256_u64_leaves(ragged)", S.sha256_u64_leaves_kernel(odd_vals),
         M.hash_u64_leaves(odd_vals, plain=True)))
-    k2_bound = max(msgs * OPS_PER_MESSAGE / int32_ops_per_s,
+    k2_bound = max(msgs * ops_per_message() / int32_ops_per_s,
                    msgs * 96 / HBM_BYTES_PER_S)
     leaf_msgs = n // 8
-    leaf_bound = max(leaf_msgs * OPS_PER_MESSAGE / int32_ops_per_s,
+    leaf_bound = max(leaf_msgs * ops_per_message() / int32_ops_per_s,
                      (n * 8 + leaf_msgs * 32) / HBM_BYTES_PER_S)
     record("sha256_64B", "consensus_specs_tpu_torch/csrc/sha256.cu",
            "consensus_specs_tpu/ops/sha256_jax.py:100", err,

@@ -30,6 +30,8 @@ and in the `epoch` group, on `chip_smoke.py`'s 2**20-validator registry
 and `bench.py`'s 1% dirty set, through functions both checkouts have:
 
 - K1 (`epoch_sweep_kernel`);
+- K3's gather mode at the step's rung of 16384, warm and cold (a 64 MB
+  write ahead of each call), and K3's full mode at 2**20 as a control;
 - each persisted forest's dirty-path update (`MerkleForest.update`: the
   balances forest, depth 18, and the registry forest, depth 20, at rung
   16384) and both one after the other;
@@ -73,7 +75,10 @@ and in the `fc` group (it builds `forkchoice`), on
   1024 on the same tables, its tables restored before each call (its
   digest covers the accept mask and the tables it updates), the empty
   cooperative launch of its grid with 0 and 1 barriers
-  (`fc_grid_barrier_probe`), and K22 on that batch as a control;
+  (`fc_grid_barrier_probe`);
+- K22 on that batch's table (7/16 voted), on the paths' table (no
+  vote), with every vote on one block, and on tables voted the same way
+  at NB = 16384 and 32768;
 - each call's CUDA launches (torch.profiler, one call; also in the
   `epoch` group);
 
@@ -230,6 +235,20 @@ def epoch_calls(cs, dev) -> tuple:
         SETUPS["k24_b_shares"] = acc0.zero_
         calls["k24_c_apply"] = lambda: E.sweep_apply_kernel(
             r0, sc, MAINNET, totals[0], got[0])
+    # K3's gather mode at the step's rung (16384 of 2**20), warm and cold
+    # (a 64 MB write ahead of each call evicts its fields from L2, as K1's
+    # sweep does in the step), and K3's full mode at 2**20 as a control
+    rec_args = inp.record_args(eff)
+    gather = (lambda: M.validator_records_root_kernel(
+        *rec_args, index=inp.validator_idx))
+    calls["records_root_gather"] = gather
+    calls["records_root_gather_cold"] = gather
+    scrub = torch.empty(2**26, dtype=torch.uint8, device=dev)
+    SETUPS["records_root_gather_cold"] = scrub.zero_
+    REPS_FOR["records_root_gather"] = 50
+    REPS_FOR["records_root_gather_cold"] = 20
+    calls["records_root_full"] = lambda: M.validator_records_root_kernel(
+        *rec_args)
     calls["incremental_step"] = step
 
     def after(ms: dict) -> dict:
@@ -477,9 +496,25 @@ def fc_calls(cs, dev) -> dict:
         DIGESTS[name] = lambda acc, t=tabs: _digest(
             acc, *(t[n][:-1] for n in ("lm_epoch", "lm_block")),
             t["node_weight"][:-1])
+    # K22 on that batch's table (7/16 of the registry voted), on the paths'
+    # table (no vote: a store's first rebuild), with every vote on one
+    # block, and on tables of NB = 16384 and 32768 voted as that batch's
     calls["fc_refresh"] = lambda: FK.fc_refresh_kernel(
         orig["lm_block"], orig["balance"], nb)
-    for name in ("fc_apply", "fc_apply_1024", "fc_refresh"):
+    empty = torch.full_like(orig["lm_block"], -1)
+    calls["fc_refresh_empty"] = lambda: FK.fc_refresh_kernel(
+        empty, orig["balance"], nb)
+    one = torch.full_like(orig["lm_block"], 3)
+    one[-1] = -1
+    calls["fc_refresh_one_slot"] = lambda: FK.fc_refresh_kernel(
+        one, orig["balance"], nb)
+    refresh = ["fc_refresh", "fc_refresh_empty", "fc_refresh_one_slot"]
+    for big_nb in (16384, 32768):
+        big = on(FS.kernel_inputs(big_nb, nv, 1024, seed=cs.SEED))
+        refresh.append(f"fc_refresh_{big_nb}")
+        calls[refresh[-1]] = (lambda t=big, m=big_nb: FK.fc_refresh_kernel(
+            t["lm_block"], t["balance"], m))
+    for name in ("fc_apply", "fc_apply_1024", *refresh):
         REPS_FOR[name] = FC_REPS
     return calls
 

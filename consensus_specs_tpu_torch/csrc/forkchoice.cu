@@ -39,10 +39,32 @@
 // barrier (fc_grid_barrier_probe times both).
 //
 // K22 fc_refresh replaces kernels.py:130 _refresh_kernel: out[b] = the sum
-// of balance[v] over the validators with lm_block[v] == b.  One thread
-// per validator, an int64 atomic add into NB + 1 slots after a memset.
-// Bound: bytes (12 a validator read); at 2**20 validators over 1025
-// slots the atomics on one slot serialise.
+// of balance[v] over the validators with lm_block[v] == b, mod 2**64 (a
+// validator with lm_block < 0 has no vote).  One launch, no memset: a
+// grid of one block of kRefreshThreads a multiprocessor strides over the
+// validators, kRefreshUnroll rows a thread a pass, the rows' lm_block
+// loaded first and then the balances of the rows with a vote only (a
+// table with no vote reads 4 bytes a validator, not 12);
+// a thread sums its consecutive rows on one slot in a register and adds
+// each run's sum v once:
+//   - shared route ((NB + 1) 8 bytes fit one block's shared memory: NB up
+//     to 16384 on the ladder): into the block's private histogram, two
+//     32-bit words a slot with 32-bit shared atomics (Hopper makes 64-bit
+//     shared atomic adds compare-and-swap loops): v's low word into lo,
+//     and v's high word plus the carry out of lo (the old value plus the
+//     addend wrapped) into hi, so that (hi << 32) + lo is the slot's sum
+//     mod 2**64 in any order; then the block adds each nonzero slot once
+//     into out with a 64-bit global atomic;
+//   - global route (NB >= 32768): each run's sum straight into out.
+// out is zero on entry: the launch before on the stream zeroed it (the
+// wrapper keeps it, one per device, stream and NB), and this launch's
+// blocks zero the next one, a slice each, so that no block waits for
+// another and none copies the slots alone (a last block that copied and
+// zeroed an accumulator took 2.6-5 us at NB = 16384-32768, PERF.md).  No
+// __match_any_sync aggregation: it cost K23 2x and K1's uniform registry
+// 8% (PERF.md).
+// Bound: bytes (4 a validator and 8 a vote read, 8 a slot written) and one
+// launch.
 //
 // K23 fc_head replaces kernels.py:148 _head_kernel: the LMD-GHOST head of
 // one padded rung.  Each round of pointer jumping reads the whole array
@@ -92,8 +114,6 @@ namespace {
 namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
-
-unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 __device__ __forceinline__ long long lane() {
   return blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -150,14 +170,76 @@ __global__ void __launch_bounds__(kThreads) fc_grid_barrier_kernel(int n, int* o
 
 // --- K22 -------------------------------------------------------------------
 
-__global__ void fc_refresh_kernel(const int* __restrict__ lm_block,
-                                  const long long* __restrict__ balance,
-                                  long long n, long long* __restrict__ out) {
-  long long i = lane();
-  if (i >= n) return;
-  int blk = lm_block[i];
-  long long bal = balance[i];
-  if (blk >= 0 && bal != 0) add_i64(&out[blk], bal);
+constexpr int kRefreshThreads = 1024;
+constexpr int kRefreshUnroll = 4;
+
+// v into slot s of the block's histogram (lo, hi: 32-bit words a slot),
+// or of out on the global route
+template <bool kShared>
+__device__ __forceinline__ void refresh_add(unsigned* hist, int slots,
+                                            unsigned long long* out, int s,
+                                            unsigned long long v) {
+  if (!kShared) {
+    atomicAdd(&out[s], v);
+    return;
+  }
+  const unsigned a = (unsigned)v;
+  unsigned h = (unsigned)(v >> 32);
+  if (a) {
+    const unsigned old = atomicAdd(&hist[s], a);
+    h += old + a < old;                   // the carry out of lo
+  }
+  if (h) atomicAdd(&hist[slots + s], h);
+}
+
+template <bool kShared>
+__global__ void __launch_bounds__(kRefreshThreads)
+    fc_refresh_kernel(const int* __restrict__ lm_block, const long long* __restrict__ balance,
+                      long long n, int nb_pad, unsigned long long* __restrict__ out,
+                      long long* __restrict__ next) {
+  extern __shared__ __align__(16) unsigned char fc_smem[];
+  unsigned* hist = (unsigned*)fc_smem;
+  const int slots = nb_pad + 1;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  // the next launch's output
+  for (long long s = lane(); s < slots; s += stride) next[s] = 0;
+  if (kShared) {
+    for (int s = threadIdx.x; s < 2 * slots; s += blockDim.x) hist[s] = 0;
+    __syncthreads();
+  }
+  int cur = -1;
+  unsigned long long sum = 0;
+  for (long long i0 = lane(); i0 < n; i0 += kRefreshUnroll * stride) {
+    int blk[kRefreshUnroll];
+    long long bal[kRefreshUnroll];
+#pragma unroll
+    for (int u = 0; u < kRefreshUnroll; ++u) {
+      const long long i = i0 + u * stride;
+      blk[u] = i < n ? lm_block[i] : -1;
+    }
+    // a balance is read only for a row with a vote
+#pragma unroll
+    for (int u = 0; u < kRefreshUnroll; ++u)
+      bal[u] = blk[u] >= 0 && blk[u] <= nb_pad ? balance[i0 + u * stride] : 0;
+#pragma unroll
+    for (int u = 0; u < kRefreshUnroll; ++u) {
+      if (blk[u] < 0 || blk[u] > nb_pad) continue;
+      if (blk[u] != cur) {
+        if (sum) refresh_add<kShared>(hist, slots, out, cur, sum);
+        cur = blk[u];
+        sum = 0;
+      }
+      sum += (unsigned long long)bal[u];
+    }
+  }
+  if (sum) refresh_add<kShared>(hist, slots, out, cur, sum);
+  if (kShared) {
+    __syncthreads();
+    for (int s = threadIdx.x; s < slots; s += blockDim.x) {
+      const unsigned long long v = ((unsigned long long)hist[slots + s] << 32) | hist[s];
+      if (v) atomicAdd(&out[s], v);
+    }
+  }
 }
 
 // --- K23 -------------------------------------------------------------------
@@ -378,18 +460,33 @@ fc_barrier_probe_kernel(int n, int* __restrict__ out) {
   if (threadIdx.x == 0) *out = acc;
 }
 
-// the shared-memory route's opt-in, once a device and size
+// a shared-memory route's opt-in, once a device and size (allowed: the
+// kernel's sizes so far, a device each)
 int head_allowed[kMaxDevices];
+int refresh_allowed[kMaxDevices];
 
-int head_allow_shared(size_t shm) {
+int allow_shared(const void* kernel, int* allowed, size_t shm) {
   int dev = 0;
   int err = cudaGetDevice(&dev);
   if (err) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (head_allowed[dev] >= (int)shm) return 0;
-  err = cudaFuncSetAttribute(fc_head_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
-  if (!err) head_allowed[dev] = (int)shm;
+  if (allowed[dev] >= (int)shm) return 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
+  if (!err) allowed[dev] = (int)shm;
+  return err;
+}
+
+// the multiprocessors of the current device, once a device
+int sm_counts[kMaxDevices];
+
+int sm_count(int* sms) {
+  int dev = 0;
+  int err = cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!sm_counts[dev])
+    err = cudaDeviceGetAttribute(&sm_counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  *sms = sm_counts[dev];
   return err;
 }
 
@@ -406,7 +503,7 @@ int coop_grid(const void* kernel, int which, long long rows, int* grid) {
     int coop = 0, sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (!err && !coop) err = cudaErrorNotSupported;
-    if (!err) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (!err) err = (cudaError_t)sm_count(&sms);
     if (!err) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
     if (err) return err;
     coop_blocks[dev][which] = per_sm * sms;
@@ -450,13 +547,32 @@ extern "C" int fc_grid_barrier_probe_launch(int b, int n, void* out, void* strea
   return (int)cudaGetLastError();
 }
 
+// K22's histogram bytes a block on the shared route; 0 where NB takes the
+// global route
+extern "C" long long fc_refresh_shared_bytes(int nb_pad) {
+  const long long shm = 8LL * (nb_pad + 1);
+  return shm <= kMaxShared ? shm : 0;
+}
+
+// K22: out (NB + 1 int64) is all zero on entry; next, as long, is zeroed
+// for the launch after this one.
 extern "C" int fc_refresh_launch(const void* lm_block, const void* balance, long long n,
-                                 int nb_pad, void* out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(out, 0, (size_t)(nb_pad + 1) * sizeof(long long), st);
-  if (err != cudaSuccess) return (int)err;
-  fc_refresh_kernel<<<blocks_for(n), kThreads, 0, st>>>(
-      (const int*)lm_block, (const long long*)balance, n, (long long*)out);
+                                 int nb_pad, void* out, void* next, void* stream) {
+  int sms = 0;
+  int err = sm_count(&sms);
+  if (err) return err;
+  const long long per_block = (long long)kRefreshThreads * kRefreshUnroll;
+  const long long need = (n + per_block - 1) / per_block;
+  const unsigned grid = (unsigned)(need < 1 ? 1 : need < sms ? need : sms);
+  const long long shm = fc_refresh_shared_bytes(nb_pad);
+  auto kernel = shm ? fc_refresh_kernel<true> : fc_refresh_kernel<false>;
+  if (shm) {
+    err = allow_shared((const void*)kernel, refresh_allowed, (size_t)shm);
+    if (err) return err;
+  }
+  kernel<<<grid, kRefreshThreads, (size_t)shm, (cudaStream_t)stream>>>(
+      (const int*)lm_block, (const long long*)balance, n, nb_pad,
+      (unsigned long long*)out, (long long*)next);
   return (int)cudaGetLastError();
 }
 
@@ -476,7 +592,7 @@ extern "C" int fc_head_launch(const void* parent, const void* weight, int boost_
   const long long shm = head_bytes(nb_pad + 1);
   const bool shared = shm <= kMaxShared;
   if (shared) {
-    const int err = head_allow_shared((size_t)shm);
+    const int err = allow_shared((const void*)fc_head_kernel<true>, head_allowed, (size_t)shm);
     if (err) return err;
   } else if (scratch == nullptr) {
     return (int)cudaErrorInvalidValue;

@@ -1,4 +1,4 @@
-// K3: hash_tree_root of each Validator record, one thread per validator.
+// K3: hash_tree_root of each Validator record.
 //
 // Replaces consensus_specs_tpu/parallel/merkle.py:157 validator_records_root
 // and the pad-row masking of parallel/merkle.py:181 validator_registry_root
@@ -14,10 +14,24 @@
 // Gather mode (an index array given) replaces bench.py:260
 // dirty_record_roots: output row i is the record root of validator
 // min(index[i], n_rows - 1), the fields read through the index in place
-// of gathering seven arrays first.
+// of gathering seven arrays first; full mode (no index) hashes row i.
 //
-// Bound on an H100: integer issue, as K2 (sha256.cu): 7 messages of about
-// 2,300 integer instructions each against 137 bytes read and written per
+// Both run the tree level by level in a block of kRecords records, 4
+// threads a record: level 0 on every thread (thread t hashes leaf pair
+// t % 4 of record t / 4, the record's loads spread over its four
+// threads), level 1 on the block's first half (thread t the node pair
+// t % 2 of record t / 2), level 2 on its first quarter; the digests between
+// levels in shared memory.  A warp with no message at a level does not
+// issue, so the warp-instructions are the 7 messages' worth and the chain
+// is 3 messages, where one thread a record ran a chain of 7 (at the
+// incremental step's rung of 16384, 4 warps an SM).  The block is 16
+// warps: a warp's scheduler on the H100 follows its index in the block
+// (mod 4), so levels 1 and 2 (8 and 4 warps) still reach all four
+// schedulers; a block of 4 warps left two of them idle at level 1 and
+// three at level 2 (PERF.md).
+//
+// Bound on an H100: the ALU pipe, as K2 (sha256.cu): 7 messages of 2,084
+// ALU instructions each (of 2,300) against 137 bytes read and written per
 // validator.  The leaves are built in registers, so the 256-byte leaf
 // level and the two interior levels never reach device memory.
 #include <cuda_runtime.h>
@@ -28,22 +42,18 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+// a block: kRecords records, 4 threads each
+constexpr int kRecords = 128;
+constexpr int kThreads = 4 * kRecords;
+// words a digest takes in shared memory: 9, so that the 8 words of 32
+// consecutive threads' digests fall in distinct banks
+constexpr int kSlot = 9;
 
 __device__ __forceinline__ void put_u64_leaf(uint32_t* w, unsigned long long v) {
   w[0] = cst::bswap32((uint32_t)v);
   w[1] = cst::bswap32((uint32_t)(v >> 32));
 #pragma unroll
   for (int k = 2; k < 8; ++k) w[k] = 0;
-}
-
-// out[0..8) = SHA-256(leaf(x) || leaf(y)) for two uint64 field leaves.
-__device__ __forceinline__ void hash_u64_pair(unsigned long long x, unsigned long long y,
-                                              uint32_t* out) {
-  uint32_t w[16];
-  put_u64_leaf(w, x);
-  put_u64_leaf(w + 8, y);
-  cst::sha256_64B(w, out);
 }
 
 __device__ __forceinline__ void hash_node_pair(const uint32_t* l, const uint32_t* r,
@@ -54,7 +64,8 @@ __device__ __forceinline__ void hash_node_pair(const uint32_t* l, const uint32_t
   cst::sha256_64B(w, out);
 }
 
-__global__ void records_root_kernel(
+// The record tree of a block of kRecords rows (see the top).
+__global__ void __launch_bounds__(kThreads) records_root_kernel(
     const uint4* __restrict__ pubkey_root, const uint4* __restrict__ credentials,
     const unsigned long long* __restrict__ effective_balance,
     const uint8_t* __restrict__ slashed,
@@ -64,38 +75,66 @@ __global__ void records_root_kernel(
     const unsigned long long* __restrict__ withdrawable_epoch,
     const long long* __restrict__ index, uint4* __restrict__ out, long long n,
     long long n_rows, long long length) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (i >= length) {
-    out[2 * i] = make_uint4(0, 0, 0, 0);
-    out[2 * i + 1] = make_uint4(0, 0, 0, 0);
-    return;
-  }
-  long long r = i;
-  if (index != nullptr) {
-    unsigned long long x = (unsigned long long)index[i];
-    r = x < (unsigned long long)n_rows ? (long long)x : n_rows - 1;
-  }
-  uint32_t h01[8], h23[8], h45[8], h67[8];
-  {
+  __shared__ uint32_t level0[kThreads * kSlot];
+  __shared__ uint32_t level1[2 * kRecords * kSlot];
+  const int t = threadIdx.x;
+  const long long first = (long long)blockIdx.x * kRecords;
+  const long long live = length < n ? length : n;
+  // level 0: leaf pair k of record t / 4 (k = 0: pubkey root and
+  // credentials; 1: effective balance and slashed; 2: the two activation
+  // epochs; 3: exit and withdrawable)
+  if (first + t / 4 < live) {
+    long long r = first + t / 4;
+    if (index != nullptr) {
+      const unsigned long long x = (unsigned long long)index[r];
+      r = x < (unsigned long long)n_rows ? (long long)x : n_rows - 1;
+    }
+    const int k = t & 3;
     uint32_t w[16];
-    uint4 a = pubkey_root[2 * r], b = pubkey_root[2 * r + 1];
-    uint4 c = credentials[2 * r], d = credentials[2 * r + 1];
-    w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
-    w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
-    w[8] = c.x; w[9] = c.y; w[10] = c.z; w[11] = c.w;
-    w[12] = d.x; w[13] = d.y; w[14] = d.z; w[15] = d.w;
-    cst::sha256_64B(w, h01);
+    if (k == 0) {
+      const uint4 a = pubkey_root[2 * r], b = pubkey_root[2 * r + 1];
+      const uint4 c = credentials[2 * r], d = credentials[2 * r + 1];
+      w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+      w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+      w[8] = c.x; w[9] = c.y; w[10] = c.z; w[11] = c.w;
+      w[12] = d.x; w[13] = d.y; w[14] = d.z; w[15] = d.w;
+    } else {
+      unsigned long long x, y;
+      if (k == 1) {
+        x = effective_balance[r];
+        y = slashed[r] ? 1ull : 0ull;
+      } else if (k == 2) {
+        x = activation_eligibility_epoch[r];
+        y = activation_epoch[r];
+      } else {
+        x = exit_epoch[r];
+        y = withdrawable_epoch[r];
+      }
+      put_u64_leaf(w, x);
+      put_u64_leaf(w + 8, y);
+    }
+    uint32_t h[8];
+    cst::sha256_64B(w, h);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) level0[t * kSlot + j] = h[j];
   }
-  hash_u64_pair(effective_balance[r], slashed[r] ? 1ull : 0ull, h23);
-  hash_u64_pair(activation_eligibility_epoch[r], activation_epoch[r], h45);
-  hash_u64_pair(exit_epoch[r], withdrawable_epoch[r], h67);
-  uint32_t h0123[8], h4567[8], root[8];
-  hash_node_pair(h01, h23, h0123);
-  hash_node_pair(h45, h67, h4567);
-  hash_node_pair(h0123, h4567, root);
-  out[2 * i] = make_uint4(root[0], root[1], root[2], root[3]);
-  out[2 * i + 1] = make_uint4(root[4], root[5], root[6], root[7]);
+  __syncthreads();
+  // level 1: node pair t % 2 of record t / 2, from level-0 slots 2t, 2t + 1
+  if (t < 2 * kRecords && first + t / 2 < live) {
+    uint32_t h[8];
+    hash_node_pair(level0 + 2 * t * kSlot, level0 + (2 * t + 1) * kSlot, h);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) level1[t * kSlot + j] = h[j];
+  }
+  __syncthreads();
+  // level 2: record t's root, or zero chunks for a pad row
+  const long long i = first + t;
+  if (t < kRecords && i < n) {
+    uint32_t root[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    if (i < live) hash_node_pair(level1 + 2 * t * kSlot, level1 + (2 * t + 1) * kSlot, root);
+    out[2 * i] = make_uint4(root[0], root[1], root[2], root[3]);
+    out[2 * i + 1] = make_uint4(root[4], root[5], root[6], root[7]);
+  }
 }
 
 }  // namespace
@@ -107,7 +146,7 @@ extern "C" int records_root_launch(const void* pubkey_root, const void* credenti
                                    const void* withdrawable_epoch, const void* index,
                                    void* out, long long n, long long n_rows,
                                    long long length, void* stream) {
-  unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  const unsigned blocks = (unsigned)((n + kRecords - 1) / kRecords);
   records_root_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint4*)pubkey_root, (const uint4*)credentials,
       (const unsigned long long*)effective_balance, (const uint8_t*)slashed,

@@ -5,10 +5,13 @@
 // the first level of parallel/merkle.py:68 subtree_root over
 // parallel/merkle.py:45 pack_u64_chunks.
 //
-// Bound on an H100: integer issue.  A message is two compressions, about
-// 2,300 32-bit integer instructions (rotations as funnel shifts, three-input
-// adds and logic), against 96 bytes of device memory traffic, so the card's
-// 32-bit integer rate bounds it long before its memory rate does.  The
+// Bound on an H100: the ALU pipe.  A message is two compressions, 2,300
+// 32-bit integer instructions in this kernel's sm_90a SASS (rotations as
+// funnel shifts, three-input adds and logic), 2,084 of them on the ALU
+// pipe (64 lanes an SM a clock; 198 IMAD on the FMA pipe, 18 VIADD on
+// either), against 96 bytes of
+// device memory traffic, so the ALU pipe bounds it long before the memory
+// rate does (chip_smoke.py `sha_message_mix` counts them).  The
 // design keeps the whole state and the 16-word rolling schedule in
 // registers, fully unrolled, and never touches shared memory.
 #include <cuda_runtime.h>

@@ -175,7 +175,7 @@ _p, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "fc_apply_launch": [_p] * 10 + [_i32, _i32, _p],
     "fc_grid_barrier_probe_launch": [_i32, _i32, _p, _p],
-    "fc_refresh_launch": [_p, _p, _i64, _i32, _p, _p],
+    "fc_refresh_launch": [_p, _p, _i64, _i32, _p, _p, _p],
     "fc_head_launch": ([_p, _p, _i32, _i64, _p, _p, _p, _p, _p, _p,
                         _i64, _i64, _i64, _i32, _i32, _i32, _p, _p, _p, _p]),
     "fc_barrier_probe_launch": [_i32, _p, _p],
@@ -188,8 +188,9 @@ def _lib():
     for f, args in _SIGNATURES.items():
         getattr(lib, f).argtypes = args
         getattr(lib, f).restype = _i32
-    lib.fc_head_scratch_bytes.argtypes = [_i32]
-    lib.fc_head_scratch_bytes.restype = _i64
+    for f in ("fc_head_scratch_bytes", "fc_refresh_shared_bytes"):
+        getattr(lib, f).argtypes = [_i32]
+        getattr(lib, f).restype = _i64
     return lib
 
 
@@ -209,15 +210,20 @@ def _table_key(device, v1: int) -> tuple:
     return (device, torch.cuda.current_stream(device).cuda_stream, v1)
 
 
+def _table(tables: dict, device, n: int, fill: int) -> torch.Tensor:
+    """The int64 table of `n` words in `tables` for `device` and its
+    current stream, made and filled with `fill` at the first call."""
+    device = torch.device(device)
+    key = _table_key(device, n)
+    if key not in tables:
+        tables[key] = torch.full((n,), fill, dtype=torch.int64, device=device)
+    return tables[key]
+
+
 def winner_table(device, v1: int) -> torch.Tensor:
     """K21's winner-key table for tables of `v1` slots on `device` and its
     current stream (made and filled with -1 at the first call)."""
-    device = torch.device(device)
-    key = _table_key(device, v1)
-    if key not in _WINNER_TABLES:
-        _WINNER_TABLES[key] = torch.full((v1,), -1, dtype=torch.int64,
-                                         device=device)
-    return _WINNER_TABLES[key]
+    return _table(_WINNER_TABLES, device, v1, -1)
 
 
 def fc_apply_kernel(val_idx, att_epoch, att_block, lm_epoch, lm_block,
@@ -266,17 +272,40 @@ def fc_grid_barrier_probe(b: int, n: int, device) -> torch.Tensor:
     return out
 
 
+# K22's outputs-to-be, per (device, stream, NB + 1): the zero tensor that
+# the next launch adds into and returns (each launch zeroes the one after
+# it); a launch that raises drops it
+_REFRESH_ACCS = {}
+
+
+def refresh_accumulator(device, nb1: int) -> torch.Tensor:
+    """K22's accumulator for rungs of `nb1` slots on `device` and its
+    current stream: the nb1 int64 words, all zero, that the next launch
+    adds into and returns (made zero at the first call)."""
+    return _table(_REFRESH_ACCS, device, nb1, 0)
+
+
 def fc_refresh_kernel(lm_block, balance, nb_pad: int):
-    """K22 on the card: `fc_refresh_plain`'s function, one thread per
-    validator and an int64 atomic add into NB+1 slots."""
+    """K22 on the card: `fc_refresh_plain`'s function in one launch with
+    no memset: block-private histograms in shared memory (NB up to 16384;
+    global atomics past that), added into the device's accumulator
+    (`refresh_accumulator`), which the launch returns after zeroing the
+    next one."""
     v1 = lm_block.shape[0]
     _check("fc_refresh lm_block", lm_block, torch.int32, (v1,))
     _check("fc_refresh balance", balance, torch.int64, (v1,))
-    out = torch.empty(nb_pad + 1, dtype=torch.int64, device=balance.device)
-    _build.require_cuda("fc_refresh", lm_block, balance, out)
-    _build.check(_lib().fc_refresh_launch(
+    dev = balance.device
+    _build.require_cuda("fc_refresh", lm_block, balance)
+    out = refresh_accumulator(dev, nb_pad + 1)
+    nxt = torch.empty(nb_pad + 1, dtype=torch.int64, device=dev)
+    err = _lib().fc_refresh_launch(
         lm_block.data_ptr(), balance.data_ptr(), v1, nb_pad, out.data_ptr(),
-        _build.stream_ptr(balance)), "fc_refresh")
+        nxt.data_ptr(), _build.stream_ptr(balance))
+    key = _table_key(dev, nb_pad + 1)
+    if err:
+        _REFRESH_ACCS.pop(key, None)
+    _build.check(err, "fc_refresh")
+    _REFRESH_ACCS[key] = nxt
     _build.launches["fc_refresh"] += 1
     return out
 

@@ -236,7 +236,9 @@ def validator_records_root_kernel(leaves: ValidatorLeaves, effective_balance,
                                   activation_epoch, exit_epoch,
                                   withdrawable_epoch, length=None, index=None):
     """K3 on CUDA tensors, the pad-row masking fused in; with `index`,
-    K3's gather mode, which reads the rows through the index."""
+    K3's gather mode, which reads the rows through the index.  Both modes
+    hash a block of `kRecords` records (128, `csrc/records_root.cu`) level
+    by level: 4, 2, then 1 message a record."""
     u64s = [effective_balance, activation_eligibility_epoch,
             activation_epoch, exit_epoch, withdrawable_epoch]
     _build.require_cuda("records_root", leaves.pubkey_root,

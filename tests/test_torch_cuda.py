@@ -226,14 +226,30 @@ def test_proof_paths_kernel(dev, n_chunks):
                for p in f.emit_proofs([0, n_chunks - 1]))
 
 
-def test_records_root_gather_kernel(dev):
+@pytest.mark.parametrize("m,length", [(5, None), (1, None), (32, None),
+                                      (33, None), (128, None), (129, None),
+                                      (200, None), (200, 150), (33, 31),
+                                      (16384, None)])
+def test_records_root_gather_kernel(dev, m, length):
+    """K3's gather mode (a block tree of records) against the plain
+    version: one record, a block and one past it, repeated indices,
+    indices past N and negative ones (clamped), pad rows (length < M),
+    and the incremental step's rung of 16384."""
     n = 1024
     reg = _registry(dev, n, seed=3)
     leaves = C.leaves_to_torch(*C.synthetic_leaf_words(n), dev)
-    idx = I.pad_dirty_idx(_idx(dev, [5, 1023, 0, 77, 77]), n)
+    if m == 5:
+        idx = I.pad_dirty_idx(_idx(dev, [5, 1023, 0, 77, 77]), n)
+    else:
+        g = torch.Generator().manual_seed(m)
+        idx = torch.randint(0, n, (m,), generator=g)
+        idx[::7] = int(idx[0])
+        idx[1::11] = n + 5
+        idx[m - 1:] = -1
+        idx = idx.to(dev)
     args = (leaves, reg.effective_balance, reg.slashed,
             reg.activation_eligibility_epoch, reg.activation_epoch,
-            reg.exit_epoch, reg.withdrawable_epoch)
+            reg.exit_epoch, reg.withdrawable_epoch, length)
     before = _build.launches["records_root_gather"]
     got = M.validator_records_root_kernel(*args, index=idx)
     assert _build.launches["records_root_gather"] == before + 1
@@ -1244,6 +1260,46 @@ def test_fc_apply_back_to_back_batches(dev, nb_pad, v_pad, batch):
                            p["node_weight"][:nb_pad])
         assert bool((table == -1).all())
     assert FK.winner_table(dev, v_pad + 1) is table
+
+
+@pytest.mark.parametrize("nb_pad", [64, 1024, 16384, 32768])
+@pytest.mark.parametrize("case", ["empty", "half", "one"])
+def test_fc_refresh_tables(dev, nb_pad, case):
+    """K22 against `fc_refresh_plain` and `index_add_` at 2**20
+    validators: no vote (the paths' rebuild), half voted, every vote on
+    one block with balances that carry out of the low word and wrap the
+    high one; NB on the shared-memory route and past it (32768).  Twice in
+    a row on one stream: the accumulator the next call takes is zero after
+    each call, and the second call leaves the first one's output alone."""
+    from consensus_specs_tpu_torch.forkchoice import kernels as FK
+
+    v = 2**20
+    rng = np.random.RandomState(nb_pad)
+    lm = np.full(v + 1, -1, np.int32)
+    bal = rng.randint(0, 2**36, v + 1).astype(np.int64)
+    if case == "half":
+        on = rng.rand(v) < 0.5
+        lm[:v][on] = rng.randint(0, nb_pad, int(on.sum()))
+    elif case == "one":
+        lm[:v] = 3
+        bal = rng.choice(np.array([2**32 - 1, 2**32, 2**63 - 1, -2**63, -1,
+                                   3], np.int64), v + 1)
+    lm_t, bal_t = torch.from_numpy(lm).to(dev), torch.from_numpy(bal).to(dev)
+    want = FK.fc_refresh_plain(lm_t, bal_t, nb_pad)
+    lib = torch.zeros(nb_pad + 1, dtype=torch.int64, device=dev).index_add_(
+        0, torch.where(lm_t >= 0, lm_t.long(), nb_pad),
+        torch.where(lm_t >= 0, bal_t, 0))
+    assert torch.equal(want, lib)
+    outs = []
+    for _ in range(2):
+        before = _build.launches["fc_refresh"]
+        outs.append(FK.fc_refresh(lm_t, bal_t, nb_pad))
+        assert _build.launches["fc_refresh"] == before + 1
+        assert torch.equal(outs[-1], want)
+        assert not FK.refresh_accumulator(dev, nb_pad + 1).any()
+    assert torch.equal(outs[0], want)
+    assert outs[0].data_ptr() != outs[1].data_ptr()
+    assert bool(FK._lib().fc_refresh_shared_bytes(nb_pad)) == (nb_pad < 32768)
 
 
 @pytest.mark.parametrize("nb_pad", [64, 1024, 16384])
